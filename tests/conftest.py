@@ -23,6 +23,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: >1-min tests (dry-run lowering, model-family "
         'smoke); deselect with -m "not slow"')
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's kernels); "
+        "skips with a reason where none is present")
 
 
 def pytest_collection_modifyitems(config, items):
