@@ -6,25 +6,38 @@
 Phases, in order; any failure exits non-zero:
 
   1. card — name and power limit (``nvidia-smi``), torch/CUDA versions,
-     and the build of both CUDA kernels from ``src/repro_torch/csrc``;
+     and the build of all six CUDA kernels from ``src/repro_torch/csrc``,
+     one ``nvcc`` per source, all started together;
   2. kernels — each kernel against its plain PyTorch version on the card
-     at the serving path's shapes (starcoder2-3b: H=24, KV=2, D=128,
-     block 16, bf16), scattered pages bit-equal; median times of the
-     kernel, the plain version and a library yardstick (gather + SDPA,
-     timed here only), each with the L2 cache flushed, beside the bound;
+     at full-width shapes (starcoder2-3b: H=24, KV=2, D=128, block 16,
+     bf16; the windowed flash attention at h2o-danube-3-4b's H=32, KV=8,
+     D=120), each output within ``kernels/compare.py``'s limit (scaled to
+     |plain| and its mean) and scattered pages bit-equal; median times of
+     the kernel, the plain version and a library yardstick (gather + SDPA,
+     SDPA or ``F.rms_norm``, timed here only), each with the L2 cache
+     flushed, beside the bound.  Then the kernel API (``kernels.ops``) as
+     an entry point: every op once at those shapes, launch counts reset
+     just before and read just after, outputs bit-equal to the kernels'
+     own;
   3. model — full-width starcoder2-3b (seeded random bf16 weights, depth
      and widths as published): two fused ragged prefill iterations and a
      4-step paged decode window, once through the kernels and once
-     through the plain path, logits compared;
+     through the plain path, logits compared; then the single-chunk paged
+     prefill (``generate.prefill_chunked`` -> ``model.prefill_chunk``) of
+     one 128-token prompt in four 32-token chunks, through the kernel
+     (launch counts reset just before, read just after), the plain path
+     and the fused ``model.prefill_chunks``, final logits compared;
   4. engine — ``ServingEngine(mode="continuous", kv="paged",
      prefill="chunked", decode_steps=4)`` under the RT-LM policy serves 32
      requests at full width; the kernels' launch counts are reset just
      before and read just after.  The same serve runs once more under
      ``torch.profiler`` for the device's busy time and the kernels' share.
 
-Then one JSON line of kernel results, the card line, and as the last line
-``{"ok": true, "device": {...}}``.  Needs a CUDA card; imports nothing of
-JAX.
+Then one JSON line of kernel results (each kernel's launches from the path
+that runs it: decode and ragged prefill from phase 4, chunked prefill from
+phase 3's single-chunk path, the other three from phase 2's ops path), the
+card line, and as the last line ``{"ok": true, "device": {...}}``.  Needs
+a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -52,13 +65,17 @@ MAX_NEW = 64
 DECODE_STEPS = 4
 N_REQUESTS = 32
 
-# H100 SXM peaks (NVIDIA data sheet)
+# H100 SXM peaks (NVIDIA data sheet): bf16 on the tensor cores, float32
+# outside them (elementwise work such as RMSNorm)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 
-# bf16 output: one bf16 ulp at |x| ~ 1 is 2^-7 ~ 7.8e-3; the kernel and the
-# plain version sum in float32 in different orders, so allow ~2.5 ulps
-KERNEL_ATOL = 2e-2
+# the ops-path shapes beyond the serving path's
+DECODE_S = 2048                  # contiguous flash decode: B=16 rows
+FA_S = 2048                      # flash attention, starcoder2-3b heads
+DANUBE = dict(H=32, KV=8, D=120, S=6144, window=4096)   # h2o-danube-3-4b
+RMS_D = 3072                     # starcoder2-3b d_model
 
 
 def fail(msg: str) -> None:
@@ -100,11 +117,27 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float,
+          flops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def held(what: str, out, ref, shares: dict) -> float:
+    """Max abs error of a kernel's output against its plain version.
+    Fails unless every element is within ``compare.RTOL * (|plain| +
+    mean |plain|)`` (``repro_torch.kernels.compare``: four times the worst
+    one-ulp bf16 rounding gap); records the largest share of that limit
+    an element used under ``shares[what]``."""
+    from repro_torch.kernels.compare import compare
+    err, share = compare(out, ref)
+    shares[what] = share
+    if not share <= 1.0:
+        fail(f"{what}: kernel vs plain max abs err {err}, {share:.3g} x "
+             "the limit")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -138,10 +171,9 @@ def check_decode(torch, F, kmod) -> dict:
     sl = torch.from_numpy(lens.astype(np.int32)).to("cuda")
     out = kmod.paged_flash_decode_attention(q, kp, vp, tab, sl)
     torch.cuda.synchronize()
-    ref = kmod.paged_decode_attention_ref(q, kp, vp, tab, sl)
-    err = float((out.float() - ref.float()).abs().max())
-    if not torch.isfinite(out).all() or err > KERNEL_ATOL:
-        fail(f"paged decode kernel vs plain: max abs err {err}")
+    shares = {}
+    err = held("paged decode", out,
+               kmod.paged_decode_attention_ref(q, kp, vp, tab, sl), shares)
     if out[0].abs().max() != 0:
         fail("paged decode kernel: a seq_len == 0 row is not zeros")
 
@@ -156,13 +188,16 @@ def check_decode(torch, F, kmod) -> dict:
         return F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
+    ops_call = ("paged_decode_attention",
+                lambda ops: ops.paged_decode_attention(q, kp, vp, tab, sl),
+                out)
     live = int(lens.sum())
     bytes_moved = (2 * q.numel() * 2 + tab.numel() * 4 + sl.numel() * 4
                    + 2 * live * KV * D * 2)
     flops = 4 * live * H * D
     b_ms, b_by = bound(bytes_moved, flops)
     return {
-        "max_abs_err": err,
+        "max_abs_err": err, "limit_share": shares,
         "ms": time_ms(torch, lambda: kmod.paged_flash_decode_attention(
             q, kp, vp, tab, sl)),
         "plain_ms": time_ms(torch, lambda: kmod.paged_decode_attention_ref(
@@ -171,6 +206,7 @@ def check_decode(torch, F, kmod) -> dict:
         "bound_ms": b_ms, "bound_by": b_by,
         "shape": {"B": B, "H": H, "KV": KV, "D": D, "bs": BS, "nb": nb,
                   "live_tokens": live},
+        "ops": [ops_call],
     }
 
 
@@ -214,14 +250,14 @@ def check_ragged(torch, F, kmod) -> dict:
              "version's")
     if not torch.equal(kp1[trash], kp[trash]):
         fail("ragged prefill kernel: the padding chunk wrote its pages")
-    err = 0.0
+    err, shares = 0.0, {}
     for c, (_, _, ln) in enumerate(chunks):
-        err = max(err, float((out[c, :ln].float()
-                              - ref[c, :ln].float()).abs().max()))
-        if not torch.isfinite(out[c, :ln]).all():
-            fail(f"ragged prefill kernel: non-finite output in chunk {c}")
-    if err > KERNEL_ATOL:
-        fail(f"ragged prefill kernel vs plain: max abs err {err}")
+        err = max(err, held(f"ragged prefill chunk {c}", out[c, :ln],
+                            ref[c, :ln], shares))
+
+    ops_call = ("ragged_chunked_prefill",
+                lambda ops: ops.ragged_chunked_prefill(
+                    q, kn, vn, kp.clone(), vp.clone(), tab, mt)[0], out)
 
     # library yardstick: index_put scatter + gather + SDPA with the mask
     tl = torch.arange(T, device="cuda")
@@ -263,7 +299,7 @@ def check_ragged(torch, F, kmod) -> dict:
     flops = 4 * keys * H * D
     b_ms, b_by = bound(bytes_moved, flops)
     return {
-        "max_abs_err": err,
+        "max_abs_err": err, "limit_share": shares,
         "ms": time_ms(torch, lambda: kmod.ragged_chunked_prefill(
             q, kn, vn, kp1, vp1, tab, mt)),
         "plain_ms": time_ms(torch, lambda: kmod.ragged_chunked_prefill_ref(
@@ -272,7 +308,256 @@ def check_ragged(torch, F, kmod) -> dict:
         "bound_ms": b_ms, "bound_by": b_by,
         "shape": {"C": C, "T_pad": T, "H": H, "KV": KV, "D": D, "bs": BS,
                   "nb": nb, "chunks": chunks},
+        "ops": [ops_call],
     }
+
+
+def check_chunked_prefill(torch, F, kmod) -> dict:
+    """The single-chunk path's four launches of a 128-token prompt (B = 1,
+    T = 32 at contexts 0, 32, 64, 96) and the four contexts in one B = 4
+    launch; tables of the engine's width (13 entries), so entries past
+    ctx + T are padding.  ``ms``, ``plain_ms``, ``library_ms`` and
+    ``bound_ms`` are means over the four B = 1 launches."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+    T, ctxs = CHUNK, (0, 32, 64, 96)
+    B = len(ctxs)
+    nb = -(-(INPUT_BUCKET + MAX_NEW + 8) // BS)
+    N = B * nb + 1
+    tables = rng.permutation(N - 1)[:B * nb].reshape(B, nb)
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kp, vp = _pool(torch, gen, N)
+    tab = torch.from_numpy(tables.astype(np.int32)).to("cuda")
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+    kernel = lambda b: kmod.chunked_prefill_attention(  # noqa: E731
+        q[b], kp, vp, tab[b], ctx[b])
+    plain = lambda b: kmod.chunked_prefill_attention_ref(  # noqa: E731
+        q[b], kp, vp, tab[b], ctx[b])
+    kv_pos = torch.arange(nb * BS, device="cuda")
+    tl = torch.arange(T, device="cuda")
+
+    def library(b):
+        idx = (tab[b].long()[:, :, None] * BS
+               + torch.arange(BS, device="cuda")).reshape(-1, nb * BS)
+        mask = (kv_pos[None, None, :]
+                <= ctx[b].long()[:, None, None] + tl[None, :, None])
+        k = kp.view(N * BS, KV, D)[idx].transpose(1, 2)
+        v = vp.view(N * BS, KV, D)[idx].transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q[b].transpose(1, 2), k, v, attn_mask=mask[:, None],
+            enable_gqa=True)
+
+    def cost(cs):
+        bytes_moved = (2 * len(cs) * T * H * D * 2
+                       + sum(2 * (c + T) * KV * D * 2 for c in cs)
+                       + len(cs) * (nb + 1) * 4)
+        flops = 4 * H * D * sum(c * T + T * (T + 1) // 2 for c in cs)
+        return bound(bytes_moved, flops)
+
+    err, rows, shares = 0.0, [], {}
+    for i in range(B):
+        b = slice(i, i + 1)
+        out = kernel(b)
+        torch.cuda.synchronize()
+        err = max(err, held(f"chunked prefill ctx {ctxs[i]}", out,
+                            plain(b), shares))
+        b_ms, b_by = cost(ctxs[i:i + 1])
+        rows.append({"ctx": ctxs[i], "ms": time_ms(torch, lambda: kernel(b)),
+                     "plain_ms": time_ms(torch, lambda: plain(b)),
+                     "library_ms": time_ms(torch, lambda: library(b)),
+                     "bound_ms": b_ms, "bound_by": b_by})
+    allb = slice(0, B)
+    out4 = kernel(allb)
+    torch.cuda.synchronize()
+    err = max(err, held("chunked prefill B=4", out4, plain(allb), shares))
+    b_ms, b_by = cost(ctxs)
+    mean = lambda k: sum(r[k] for r in rows) / len(rows)  # noqa: E731
+    return {
+        "max_abs_err": err, "limit_share": shares,
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "library_ms": mean("library_ms"), "bound_ms": mean("bound_ms"),
+        "bound_by": rows[-1]["bound_by"], "per_context": rows,
+        "b4": {"ms": time_ms(torch, lambda: kernel(allb)),
+               "plain_ms": time_ms(torch, lambda: plain(allb)),
+               "library_ms": time_ms(torch, lambda: library(allb)),
+               "bound_ms": b_ms, "bound_by": b_by},
+        "shape": {"T": T, "H": H, "KV": KV, "D": D, "bs": BS, "nb": nb,
+                  "contexts": list(ctxs)},
+        "ops": [("chunked_prefill_attention",
+                 lambda ops: ops.chunked_prefill_attention(q, kp, vp, tab,
+                                                           ctx), out4)],
+    }
+
+
+def check_flash_decode(torch, F, kmod) -> dict:
+    """B = 16 rows over a contiguous S = 2048 cache with per-row masks:
+    valid lengths spread from 1 to 2048, and the longest row with a hole
+    in the middle (a ring-style mask).  A separate all-masked row must
+    return zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    B, S = NUM_SLOTS, DECODE_S
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kc = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    vc = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lens = np.linspace(1, S, B).astype(np.int64)
+    mask_np = np.arange(S)[None, :] < lens[:, None]
+    mask_np[-1, S // 3:S // 2] = False
+    mask = torch.from_numpy(mask_np).to("cuda")
+    out = kmod.flash_decode_attention(q, kc, vc, mask)
+    torch.cuda.synchronize()
+    shares = {}
+    err = held("flash decode", out,
+               kmod.decode_attention_ref(q, kc, vc, mask), shares)
+    empty = torch.zeros((1, S), dtype=torch.bool, device="cuda")
+    zero = kmod.flash_decode_attention(q[:1].contiguous(), kc[:1], vc[:1],
+                                       empty)
+    torch.cuda.synchronize()
+    if zero.abs().max() != 0:
+        fail("flash decode kernel: an all-masked row is not zeros")
+
+    m4 = mask[:, None, None, :]
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                              attn_mask=m4, enable_gqa=True)
+
+    valid = int(mask_np.sum())
+    bytes_moved = (2 * q.numel() * 2 + B * S + 2 * valid * KV * D * 2)
+    b_ms, b_by = bound(bytes_moved, 4 * valid * H * D)
+    return {
+        "max_abs_err": err, "limit_share": shares,
+        "ms": time_ms(torch, lambda: kmod.flash_decode_attention(
+            q, kc, vc, mask)),
+        "plain_ms": time_ms(torch, lambda: kmod.decode_attention_ref(
+            q, kc, vc, mask)),
+        "library_ms": time_ms(torch, library),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D,
+                  "valid_slots": valid},
+        "ops": [("flash_decode_attention",
+                 lambda ops: ops.flash_decode_attention(q, kc, vc, mask),
+                 out)],
+    }
+
+
+def check_flash_attention(torch, F, kmod) -> dict:
+    """Two prefill cases: starcoder2-3b heads, B = 1, S = 2048, causal;
+    h2o-danube-3-4b widths, S = 6144, causal with window 4096.  The
+    top-level numbers are the first case's; ``windowed`` holds the
+    second's."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cases = [dict(H=H, KV=KV, D=D, S=FA_S, window=None), DANUBE]
+    res, calls, shares = [], [], {}
+    for c in cases:
+        S, Hc, KVc, Dc, W = c["S"], c["H"], c["KV"], c["D"], c["window"]
+        q = torch.randn((1, S, Hc, Dc), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k = torch.randn((1, S, KVc, Dc), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        v = torch.randn((1, S, KVc, Dc), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        run = lambda: kmod.flash_attention(  # noqa: E731
+            q, k, v, causal=True, window=W)
+        out = run()
+        torch.cuda.synchronize()
+        err = held(f"flash attention S={S} window={W}", out,
+                   kmod.attention_ref(q, k, v, causal=True, window=W),
+                   shares)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if W is None:
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            pairs = S * (S + 1) // 2
+        else:
+            i = torch.arange(S, device="cuda")
+            wmask = ((i[None, :] <= i[:, None])
+                     & (i[:, None] - i[None, :] < W))
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=wmask, enable_gqa=True)
+            pairs = sum(min(j + 1, W) for j in range(S))
+        bytes_moved = 2 * S * Hc * Dc * 2 + 2 * S * KVc * Dc * 2
+        b_ms, b_by = bound(bytes_moved, 4 * pairs * Hc * Dc)
+        res.append({
+            "max_abs_err": err, "ms": time_ms(torch, run),
+            "plain_ms": time_ms(torch, lambda: kmod.attention_ref(
+                q, k, v, causal=True, window=W), reps=5),
+            "library_ms": time_ms(torch, library),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"B": 1, "S": S, "H": Hc, "KV": KVc, "D": Dc,
+                      "causal": True, "window": W}})
+        calls.append((f"flash_attention S={S}",
+                      lambda ops, q=q, k=k, v=v, W=W: ops.flash_attention(
+                          q, k, v, causal=True, window=W), out))
+    top = dict(res[0])
+    top["max_abs_err"] = max(r["max_abs_err"] for r in res)
+    top["limit_share"] = shares
+    top["windowed"] = res[1]
+    top["ops"] = calls
+    return top
+
+
+def check_rms_norm(torch, F, kmod) -> dict:
+    """x (2048, 3072) and (16, 3072) bf16 (a prefill's and a decode
+    step's rows at starcoder2-3b's d_model), eps 1e-6.  The top-level
+    numbers are the 2048-row case's; ``decode_rows`` holds the other."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    w = (torch.randn((RMS_D,), generator=gen, device="cuda") * 0.1).to(
+        torch.bfloat16)
+    w1 = 1.0 + w
+    res, calls, shares = [], [], {}
+    for n in (2048, NUM_SLOTS):
+        x = torch.randn((n, RMS_D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        out = kmod.rms_norm(x, w, 1e-6)
+        torch.cuda.synchronize()
+        err = held(f"rms_norm {n} rows", out,
+                   kmod.rms_norm_ref(x, w, 1e-6), shares)
+        b_ms, b_by = bound(2 * x.numel() * 2 + w.numel() * 2,
+                           4 * x.numel(), FP32_FLOPS_PER_S)
+        res.append({
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: kmod.rms_norm(x, w, 1e-6)),
+            "plain_ms": time_ms(torch, lambda: kmod.rms_norm_ref(x, w,
+                                                                 1e-6)),
+            "library_ms": time_ms(torch, lambda: F.rms_norm(
+                x, (RMS_D,), weight=w1, eps=1e-6)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"rows": n, "D": RMS_D, "dtype": "bfloat16"}})
+        calls.append((f"rms_norm {n} rows",
+                      lambda ops, x=x: ops.rms_norm(x, w, eps=1e-6), out))
+    top = dict(res[0])
+    top["max_abs_err"] = max(r["max_abs_err"] for r in res)
+    top["limit_share"] = shares
+    top["decode_rows"] = res[1]
+    top["ops"] = calls
+    return top
+
+
+def run_ops_path(torch, kmods, calls) -> dict:
+    """The kernel API as an entry point: each op once at the phase-2
+    shapes through ``kernels.ops`` (``use_kernels=None``), with every
+    launch count reset just before and read just after.  Each output must
+    equal the kernel's own phase-2 output bit for bit (the kernels are
+    deterministic) and every kernel must have launched."""
+    from repro_torch.kernels import ops
+    for m in kmods:
+        m.launches = 0
+    outs = [fn(ops) for _, fn, _ in calls]
+    torch.cuda.synchronize()
+    launches = {m.NAME: m.launches for m in kmods}
+    for (what, _, want), got in zip(calls, outs):
+        if not torch.equal(got, want):
+            fail(f"ops path: {what} differs from the kernel's phase-2 "
+                 "output")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"ops path: kernel {name} was never launched")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +644,73 @@ def check_model(torch, cfg, params) -> dict:
         torch, lambda: model_lib.decode_steps_paged(
             params, cfg, kvk.state, tok, kvk.tables_device(),
             num_steps=DECODE_STEPS, use_kernels=True))
+    return out
+
+
+def check_single_chunk(torch, cfg, params, kmods) -> dict:
+    """The single-chunk paged prefill at full width and depth: one
+    128-token prompt in four 32-token chunks through
+    ``generate.prefill_chunked`` (-> ``model.prefill_chunk``) with the
+    kernel, its launch counts reset just before and read just after, then
+    through the plain path and through the fused ``model.prefill_chunks``
+    (kernel, one chunk per iteration).  Final logits within LOGIT_ATOL of
+    each other and the same top-1 token."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.prefill import build_packed_arrays
+    from repro_torch.serving import generate
+    rng = np.random.default_rng(SEED + 7)
+    S = INPUT_BUCKET
+    nb = S // BS
+    prompt_np = rng.integers(2, cfg.vocab_size, size=S).astype(np.int32)
+    row_np = rng.permutation(nb).astype(np.int32)
+    prompt = torch.from_numpy(prompt_np[None]).to("cuda")
+    row = torch.from_numpy(row_np).to("cuda")
+    cache = lambda: transformer.init_paged_cache(  # noqa: E731
+        cfg, 1, nb + 1, BS, device="cuda")
+
+    for m in kmods:
+        m.launches = 0
+    torch.cuda.synchronize()
+    ck = cache()
+    lk = generate.prefill_chunked(params, cfg, ck, prompt, 0, row,
+                                  chunk_size=CHUNK, use_kernels=True)
+    torch.cuda.synchronize()
+    launches = {m.NAME: m.launches for m in kmods}
+    want = (S // CHUNK) * cfg.num_layers
+    if launches["chunked_prefill_attention"] != want:
+        fail(f"single-chunk path: {launches['chunked_prefill_attention']} "
+             f"chunked-prefill launches, expected {want}")
+    lp = generate.prefill_chunked(params, cfg, cache(), prompt, 0, row,
+                                  chunk_size=CHUNK, use_kernels=False)
+    cf = cache()
+    for lo in range(0, S, CHUNK):
+        arrays = build_packed_arrays(
+            (CHUNK, 1, CHUNK), [(0, lo, prompt_np[lo:lo + CHUNK], row_np)],
+            pad_slot=1, table_width=nb, trash_block=nb)
+        lf = model_lib.prefill_chunks(
+            params, cfg, cf, *(torch.from_numpy(a).to("cuda")
+                               for a in arrays),
+            chunk_pad=CHUNK, use_kernels=True)[0]
+    torch.cuda.synchronize()
+    out = {
+        "launches": launches,
+        "chunks": S // CHUNK,
+        "logits_max_abs_err_vs_plain": float((lk - lp).abs().max()),
+        "logits_max_abs_err_vs_fused": float((lk - lf).abs().max()),
+        "logits_scale": float(lp.abs().max()),
+        "top1": [int(x.argmax()) for x in (lk, lp, lf)],
+        "pos": int(ck["pos"][0]),
+    }
+    if not torch.isfinite(lk).all():
+        fail("single-chunk path: non-finite logits")
+    if max(out["logits_max_abs_err_vs_plain"],
+           out["logits_max_abs_err_vs_fused"]) > LOGIT_ATOL:
+        fail(f"single-chunk path: logits differ: {out}")
+    if len(set(out["top1"])) != 1:
+        fail(f"single-chunk path: top-1 tokens differ: {out}")
+    if out["pos"] != S:
+        fail(f"single-chunk path: pos {out['pos']}, expected {S}")
     return out
 
 
@@ -513,11 +865,17 @@ def main() -> int:
     print(f"kernel build: {json.dumps(build_s)} "
           f"(wall {time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # -- phase 2: kernels vs plain versions
-    checks = {KERNELS[0].NAME: check_decode(torch, F, KERNELS[0]),
-              KERNELS[1].NAME: check_ragged(torch, F, KERNELS[1])}
-    for name, r in checks.items():
-        print(f"kernel {name}: {json.dumps(r)}", flush=True)
+    # -- phase 2: kernels vs plain versions, then the ops path
+    checks = {}
+    for m, check in zip(KERNELS, (check_decode, check_ragged,
+                                  check_chunked_prefill, check_rms_norm,
+                                  check_flash_attention, check_flash_decode)):
+        checks[m.NAME] = check(torch, F, m)
+        shown = {k: v for k, v in checks[m.NAME].items() if k != "ops"}
+        print(f"kernel {m.NAME}: {json.dumps(shown)}", flush=True)
+    ops_launches = run_ops_path(
+        torch, KERNELS, [c for r in checks.values() for c in r["ops"]])
+    print(f"ops path: launches {json.dumps(ops_launches)}", flush=True)
 
     # -- phase 3: full-width model
     cfg = configs.get_config("starcoder2-3b")
@@ -532,17 +890,27 @@ def main() -> int:
           flush=True)
     mres = check_model(torch, cfg, params)
     print(f"model check: {json.dumps(mres)}", flush=True)
+    sres = check_single_chunk(torch, cfg, params, KERNELS)
+    print(f"single-chunk path: {json.dumps(sres)}", flush=True)
 
     # -- phase 4: engine
-    eres = run_engine(torch, cfg, params, KERNELS)
+    # the engine's main path runs the decode and fused prefill kernels
+    eres = run_engine(torch, cfg, params, KERNELS[:2])
     print(f"engine [{card}]: {json.dumps(eres)}", flush=True)
 
+    # each kernel's launches on the path that runs it
+    path_launches = {
+        "paged_decode_attention": eres["launches"],
+        "ragged_chunked_prefill": eres["launches"],
+        "chunked_prefill_attention": sres["launches"],
+    }
     kernels = []
     for m in KERNELS:
         r = checks[m.NAME]
         kernels.append({
             "name": m.NAME, "route": "cuda", "source": m.SOURCE,
-            "replaces": m.REPLACES, "launches": eres["launches"][m.NAME],
+            "replaces": m.REPLACES,
+            "launches": path_launches.get(m.NAME, ops_launches)[m.NAME],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

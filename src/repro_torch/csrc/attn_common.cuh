@@ -1,7 +1,8 @@
-// Shared device code of the port's two attention kernels
-// (paged_decode_attention.cu, ragged_chunked_prefill.cu).
+// Shared device code of the port's attention kernels: every csrc/*.cu
+// that includes this header.  _build.py hashes the shared headers into
+// every library's name, so an edit here rebuilds all of them.
 //
-// Both kernels stream key/value tiles through shared memory and keep an
+// Each kernel streams key/value tiles through shared memory and keeps an
 // online softmax (running max m, running sum l, float32 accumulator acc)
 // for a block of R query rows, as the TPU kernels they replace do in VMEM
 // scratch.  Everything is float32 after the bf16 loads.

@@ -23,6 +23,7 @@
 // SMs: the card is under-filled, which a split-K (flash-decoding) pass is
 // the known cure for; this first version keeps one pass.
 #include "attn_common.cuh"
+#include "rtlm_api.cuh"
 
 namespace {
 
@@ -91,10 +92,6 @@ int rtlm_paged_decode_attention(const void* q, const void* k_pages,
       (const __nv_bfloat16*)v_pages, (const int*)tables,
       (const int*)seq_lens, (__nv_bfloat16*)out, H, KV, D, bs, nb, scale);
   return (int)cudaGetLastError();
-}
-
-const char* rtlm_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

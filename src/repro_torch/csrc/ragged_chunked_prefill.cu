@@ -12,11 +12,12 @@
 // softmax, divided by max(l, 1e-30)).  A chunk_len == 0 padding chunk
 // writes nothing and returns zeros.
 //
-// What bounds it on the H100: at serving shapes (chunks of 32 tokens over
-// prefixes of a few hundred) the work is ~G * T_pad = 384 query rows per
-// page per KV head, around 2 * 384 flops per key byte — above the ~295
-// flops/byte ridge, so the bound is the tensor-core rate and, at these
-// small sizes, the number of CTAs in flight.
+// What bounds it on the H100: memory, at serving shapes (chunks of 32
+// tokens over prefixes of a few hundred): each page row serves
+// G * T_pad = 384 query rows, but the chunks' queries, outputs and fresh
+// K/V are most of the bytes, and the operations come to fewer than the
+// ~295 per byte moved where the tensor cores would become the limit
+// (chip_smoke's bound says "bytes").
 //
 // What the design does about it: one CTA per (query tile of R rows of the
 // T_pad * G row block, KV head, chunk), so every key/value tile loaded into
@@ -29,6 +30,7 @@
 // This first version computes in float32 on the CUDA cores; wgmma, TMA
 // and warp specialisation are later work.
 #include "attn_common.cuh"
+#include "rtlm_api.cuh"
 
 namespace {
 
@@ -146,10 +148,6 @@ int rtlm_ragged_chunked_prefill(const void* q, const void* k_new,
       (__nv_bfloat16*)v_pages, (const int*)tables, (const int*)meta,
       (__nv_bfloat16*)out, T, H, KV, D, bs, nb, scale);
   return (int)cudaGetLastError();
-}
-
-const char* rtlm_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -8,6 +8,13 @@ expose a plain C interface (no PyTorch headers: ``nvcc`` takes seconds, not
 minutes).  Nothing is compiled at import time: ``load`` builds on first
 use, and ``build`` compiles several libraries with one ``nvcc`` process
 each, all started together.  A missing ``nvcc`` or a failed compile raises.
+
+The launch protocol every wrapper shares is here too: ``on_card`` sends a
+CPU tensor to the plain version and refuses other devices,
+``check_tensors`` holds the kernel's arguments to one device, their types
+and contiguity, and ``launch`` calls a library's symbol on the current
+stream, raises on a CUDA error and counts the launch in the wrapper's
+module.
 """
 
 from __future__ import annotations
@@ -19,13 +26,18 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from types import ModuleType
+from typing import Dict, Iterable, Sequence, Tuple, Union
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-COMMON = ("attn_common.cuh",)
+COMMON = ("attn_common.cuh", "rtlm_api.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -94,8 +106,46 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error code."""
+def on_card(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the plain version); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return True
+
+
+DTypes = Union[torch.dtype, Tuple[torch.dtype, ...]]
+
+
+def check_tensors(specs: Sequence[Tuple[str, torch.Tensor, DTypes]]) -> None:
+    """Each ``(name, tensor, dtype or dtypes)`` on the first one's device,
+    of a dtype the kernel takes, and contiguous."""
+    device = specs[0][1].device
+    for name, t, dt in specs:
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, {specs[0][0]} on "
+                             f"{device}")
+        allowed = dt if isinstance(dt, tuple) else (dt,)
+        if t.dtype not in allowed:
+            raise TypeError(f"{name}: {t.dtype}, the kernel takes "
+                            + " or ".join(str(a) for a in allowed))
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def launch(module: ModuleType, symbol: str, argtypes: Sequence, *args,
+           device: torch.device) -> None:
+    """Call ``symbol`` of the library of ``module.NAME`` with ``args`` and
+    the current stream of ``device`` as its last argument, raise if it
+    returns a CUDA error code, and add one to ``module.launches``."""
+    lib = load(module.NAME)
+    fn = getattr(lib, symbol)
+    fn.argtypes = [*argtypes, P]
+    fn.restype = ctypes.c_int
+    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         msg = lib.rtlm_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{module.NAME}: CUDA error {rc} ({msg})")
+    module.launches += 1

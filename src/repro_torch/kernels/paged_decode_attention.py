@@ -15,11 +15,12 @@ Dispatch: a CUDA tensor launches the kernel in ``csrc/paged_decode_attention.cu`
 
 from __future__ import annotations
 
-import ctypes
+import sys
 
 import torch
 
 from . import _build
+from ._build import F, I, P
 from .ref import paged_decode_attention_ref
 
 NAME = "paged_decode_attention"
@@ -28,16 +29,7 @@ REPLACES = "src/repro/kernels/paged_decode_attention.py:84"
 
 launches = 0
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def _fn():
-    fn = _build.load(NAME).rtlm_paged_decode_attention
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                   ctypes.c_float, _P]
-    fn.restype = ctypes.c_int
-    return fn
+_self = sys.modules[__name__]
 
 
 def _check(q, k_pages, v_pages, block_tables, seq_lens) -> None:
@@ -49,17 +41,11 @@ def _check(q, k_pages, v_pages, block_tables, seq_lens) -> None:
     if block_tables.shape[0] != B or tuple(seq_lens.shape) != (B,):
         raise ValueError(f"tables {tuple(block_tables.shape)}, seq_lens "
                          f"{tuple(seq_lens.shape)} for batch {B}")
-    for name, t, dt in (("q", q, torch.bfloat16),
-                        ("k_pages", k_pages, torch.bfloat16),
-                        ("v_pages", v_pages, torch.bfloat16),
-                        ("block_tables", block_tables, torch.int32),
-                        ("seq_lens", seq_lens, torch.int32)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.dtype != dt:
-            raise TypeError(f"{name}: {t.dtype}, the kernel takes {dt}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+    _build.check_tensors((("q", q, torch.bfloat16),
+                          ("k_pages", k_pages, torch.bfloat16),
+                          ("v_pages", v_pages, torch.bfloat16),
+                          ("block_tables", block_tables, torch.int32),
+                          ("seq_lens", seq_lens, torch.int32)))
 
 
 def paged_flash_decode_attention(q, k_pages, v_pages, block_tables,
@@ -67,20 +53,17 @@ def paged_flash_decode_attention(q, k_pages, v_pages, block_tables,
     """q (B, H, D); pages (N, bs, KV, D); block_tables (B, nb) i32 page
     ids; seq_lens (B,) i32 valid lengths.  Returns (B, H, D) in q's
     dtype."""
-    global launches
-    if q.device.type == "cpu":
+    if not _build.on_card(q):
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           seq_lens)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
     _check(q, k_pages, v_pages, block_tables, seq_lens)
     B, H, D = q.shape
     _, bs, KV, _ = k_pages.shape
     out = torch.empty_like(q)
-    rc = _fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-               block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-               B, H, KV, D, bs, block_tables.shape[1], 1.0 / D ** 0.5,
-               torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(_build.load(NAME), rc, NAME)
-    launches += 1
+    _build.launch(_self, "rtlm_paged_decode_attention",
+                  [P, P, P, P, P, P, I, I, I, I, I, I, F],
+                  q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                  block_tables.data_ptr(), seq_lens.data_ptr(),
+                  out.data_ptr(), B, H, KV, D, bs, block_tables.shape[1],
+                  1.0 / D ** 0.5, device=q.device)
     return out

@@ -18,11 +18,12 @@ Dispatch: a CUDA tensor launches the kernel in ``csrc/ragged_chunked_prefill.cu`
 
 from __future__ import annotations
 
-import ctypes
+import sys
 
 import torch
 
 from . import _build
+from ._build import F, I, P
 from .ref import ragged_chunked_prefill_ref
 
 NAME = "ragged_chunked_prefill"
@@ -33,16 +34,7 @@ META_SLOT, META_CTX, META_LEN, META_QOFF = 0, 1, 2, 3
 
 launches = 0
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def _fn():
-    fn = _build.load(NAME).rtlm_ragged_chunked_prefill
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                   _I, ctypes.c_float, _P]
-    fn.restype = ctypes.c_int
-    return fn
+_self = sys.modules[__name__]
 
 
 def _check(q, k_new, v_new, k_pages, v_pages, block_tables, meta) -> None:
@@ -57,19 +49,13 @@ def _check(q, k_new, v_new, k_pages, v_pages, block_tables, meta) -> None:
     if block_tables.shape[0] != C or tuple(meta.shape) != (C, 4):
         raise ValueError(f"tables {tuple(block_tables.shape)}, meta "
                          f"{tuple(meta.shape)} for {C} chunks")
-    for name, t, dt in (("q", q, torch.bfloat16),
-                        ("k_new", k_new, torch.bfloat16),
-                        ("v_new", v_new, torch.bfloat16),
-                        ("k_pages", k_pages, torch.bfloat16),
-                        ("v_pages", v_pages, torch.bfloat16),
-                        ("block_tables", block_tables, torch.int32),
-                        ("meta", meta, torch.int32)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.dtype != dt:
-            raise TypeError(f"{name}: {t.dtype}, the kernel takes {dt}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+    _build.check_tensors((("q", q, torch.bfloat16),
+                          ("k_new", k_new, torch.bfloat16),
+                          ("v_new", v_new, torch.bfloat16),
+                          ("k_pages", k_pages, torch.bfloat16),
+                          ("v_pages", v_pages, torch.bfloat16),
+                          ("block_tables", block_tables, torch.int32),
+                          ("meta", meta, torch.int32)))
 
 
 def ragged_chunked_prefill(q, k_new, v_new, k_pages, v_pages, block_tables,
@@ -77,21 +63,18 @@ def ragged_chunked_prefill(q, k_new, v_new, k_pages, v_pages, block_tables,
     """q (C, T_pad, H, D); k_new/v_new (C, T_pad, KV, D) in the page dtype;
     pages (N, bs, KV, D), written in place; block_tables (C, nb) i32;
     meta (C, 4) i32.  Returns out (C, T_pad, H, D) in q's dtype."""
-    global launches
-    if q.device.type == "cpu":
+    if not _build.on_card(q):
         return ragged_chunked_prefill_ref(q, k_new, v_new, k_pages, v_pages,
                                           block_tables, meta)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
     _check(q, k_new, v_new, k_pages, v_pages, block_tables, meta)
     C, T, H, D = q.shape
     _, bs, KV, _ = k_pages.shape
     out = torch.empty_like(q)
-    rc = _fn()(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-               k_pages.data_ptr(), v_pages.data_ptr(),
-               block_tables.data_ptr(), meta.data_ptr(), out.data_ptr(),
-               C, T, H, KV, D, bs, block_tables.shape[1], 1.0 / D ** 0.5,
-               torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(_build.load(NAME), rc, NAME)
-    launches += 1
+    _build.launch(_self, "rtlm_ragged_chunked_prefill",
+                  [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F],
+                  q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                  k_pages.data_ptr(), v_pages.data_ptr(),
+                  block_tables.data_ptr(), meta.data_ptr(), out.data_ptr(),
+                  C, T, H, KV, D, bs, block_tables.shape[1], 1.0 / D ** 0.5,
+                  device=q.device)
     return out

@@ -1,27 +1,30 @@
-"""Plain PyTorch oracles of the two ported attention kernels.
+"""Plain PyTorch versions of the port's six kernels.
 
-Port of the two paged oracles of ``repro.kernels.ref``
-(``paged_decode_attention_ref``, ``ragged_chunked_prefill_ref``): gather
-each sequence's logical view through its block table, then a masked
-softmax in float32.  Two deliberate differences from the reference
-oracles, both of which make the plain version compute exactly what the
-kernels (TPU and CUDA alike) compute:
+Ports of the oracles of ``repro.kernels.ref``: ``attention_ref``,
+``decode_attention_ref``, ``paged_decode_attention_ref``,
+``chunked_prefill_attention_ref``, ``ragged_chunked_prefill_ref`` and
+``rms_norm_ref``.  The paged ones gather each sequence's logical view
+through its block table; every attention is one masked softmax in float32.
+Two deliberate differences from the reference oracles, both of which make
+the plain version compute exactly what the CUDA kernels compute:
 
   * probabilities are re-masked after the max shift and the sum is
     clamped at 1e-30, so a row with nothing to attend (``seq_len == 0``,
-    or a ``chunk_len == 0`` padding chunk with no prefix) returns zeros
-    instead of the reference oracle's uniform average over masked keys;
+    a ``chunk_len == 0`` padding chunk with no prefix, an all-false
+    decode mask row) returns zeros instead of the reference oracle's
+    uniform average over masked keys;
   * the ragged prefill scatters the chunk K/V IN PLACE into the page
     pools (the reference returns new pools).  Padding rows
     (``t >= chunk_len``) are dropped by masking, never written.
 
-The kernel wrappers (``paged_decode_attention.py``,
-``ragged_chunked_prefill.py``) call these for CPU tensors; the tests hold
-them against the Pallas kernels in interpret mode, and ``chip_smoke.py``
-holds the CUDA kernels against them on the card.
+The kernel wrappers call these for CPU tensors; the tests hold them
+against the Pallas kernels in interpret mode, and ``chip_smoke.py`` holds
+the CUDA kernels against them on the card.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -57,6 +60,34 @@ def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def attention_ref(q, k, v, *, causal: bool = True,
+                  window: Optional[int] = None):
+    """q (B, Sq, H, D); k/v (B, Sk, KV, D) -> (B, Sq, H, D), positions
+    aligned (query i and key i at position i).  Key j is attended by
+    query i iff ``j <= i`` when ``causal`` and ``i - j < window`` when a
+    window is given."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= (qp - kp) < window
+    return _masked_attention(q, k, v, mask.expand(q.shape[0], Sq, Sk))
+
+
+def decode_attention_ref(q, k_cache, v_cache, mask):
+    """q (B, H, D); caches (B, S, KV, D); mask (B, S) bool -> (B, H, D).
+    Row b attends slot s iff ``mask[b, s]``; a row whose mask is all false
+    returns zeros."""
+    if tuple(mask.shape) != (q.shape[0], k_cache.shape[1]):
+        raise ValueError(f"mask {tuple(mask.shape)}, expected "
+                         f"{(q.shape[0], k_cache.shape[1])}")
+    return _masked_attention(q[:, None], k_cache, v_cache,
+                             mask[:, None, :])[:, 0]
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens):
     """q (B, H, D); pages (N, bs, KV, D); block_tables (B, nb) i32;
     seq_lens (B,) i32 -> (B, H, D).  Key position p of row b is attended
@@ -67,6 +98,22 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens):
     mask = (torch.arange(L, device=q.device)[None, :]
             < seq_lens.long()[:, None])                       # (B, L)
     return _masked_attention(q[:, None], k, v, mask[:, None, :])[:, 0]
+
+
+def chunked_prefill_attention_ref(q, k_pages, v_pages, block_tables,
+                                  ctx_lens):
+    """q (B, T, H, D); pages (N, bs, KV, D) already holding each row's
+    chunk K/V at logical positions ``ctx_lens[b] .. ctx_lens[b] + T - 1``;
+    block_tables (B, nb) i32; ctx_lens (B,) i32 -> (B, T, H, D).  Query t
+    attends positions ``<= ctx_lens[b] + t``: full over the prefix, causal
+    within the chunk."""
+    k = _gather(k_pages, block_tables)
+    v = _gather(v_pages, block_tables)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    t = torch.arange(q.shape[1], device=q.device)
+    mask = (kv_pos[None, None, :]
+            <= ctx_lens.long()[:, None, None] + t[None, :, None])
+    return _masked_attention(q, k, v, mask)
 
 
 def ragged_chunked_prefill_ref(q, k_new, v_new, k_pages, v_pages,
@@ -107,3 +154,13 @@ def ragged_chunked_prefill_ref(q, k_new, v_new, k_pages, v_pages,
             | ((in_chunk >= 0) & (in_chunk <= t[None, :, None])
                & (in_chunk < lens[:, None, None])))
     return _masked_attention(q, k, v, mask)
+
+
+def rms_norm_ref(x, weight, eps: float = 1e-6):
+    """x (..., D); weight (D,) -> ``x * rsqrt(mean(x^2) + eps) * (1 + w)``
+    reduced and scaled in float32, cast to x's dtype (as
+    ``models.layers.rms_norm``)."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + weight.float())).to(x.dtype)

@@ -20,6 +20,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+# the model's RMSNorm is the RMSNorm kernel's plain version (one
+# implementation; the reference keeps two identical ones)
+from ..kernels.ref import rms_norm_ref as rms_norm  # noqa: F401
+
 NEG_INF = -1e30
 
 
@@ -36,16 +40,8 @@ def dense_init(generator: torch.Generator, shape, dtype, device,
 
 
 # ---------------------------------------------------------------------------
-# RMSNorm / RoPE
+# RoPE
 # ---------------------------------------------------------------------------
-
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + weight.float())).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:

@@ -5,6 +5,7 @@ serving subset:
   * ``prefill`` / ``decode_step``                     bulk lane (ring cache)
   * ``decode_step_paged`` / ``decode_steps_paged``    paged decode windows
   * ``prefill_chunks``                                fused ragged prefill
+  * ``prefill_chunk``                                 one chunk of one prompt
 
 Caches are updated IN PLACE (the reference returns new caches); each
 function returns only its outputs.  ``decode_steps_paged`` replaces the
@@ -156,4 +157,31 @@ def prefill_chunks(params: dict, cfg, cache: dict, tokens: torch.Tensor,
     buf = torch.cat([pos, pos.new_zeros(1)])
     buf[idx] = (ctx_lens + lens).to(pos.dtype)
     pos.copy_(buf[:n])
+    return last_logits
+
+
+@torch.no_grad()
+def prefill_chunk(params: dict, cfg, cache: dict, tokens: torch.Tensor,
+                  slot: int, table_row: torch.Tensor, ctx_len, *,
+                  use_kernels: bool) -> torch.Tensor:
+    """Run ONE chunk of one request's prompt against the paged cache.
+
+    tokens (1, T) the chunk's token slice, at absolute positions
+    ``ctx_len .. ctx_len + T - 1`` (``ctx_len``: the prompt tokens already
+    prefilled, an int or a 0-d tensor); table_row (nb,) i32 the sequence's
+    block table, backing every position of the chunk.  Each layer scatters
+    the chunk's K/V into its pages and attends full over the prefix,
+    causal within the chunk.  Sets ``pos[slot] = ctx_len + T`` in place.
+    Returns last_logits (V,) f32 at the chunk's last position: only the
+    final chunk's logits feed the sampler."""
+    T = tokens.shape[1]
+    dev = tokens.device
+    positions = (torch.as_tensor(ctx_len, dtype=torch.int32, device=dev)
+                 + torch.arange(T, dtype=torch.int32, device=dev))
+    x = layers.embed(params["embed"], tokens, cfg)
+    x = transformer.prefill_chunk_paged(params["layers"], x, positions,
+                                        table_row.to(torch.int32), cfg,
+                                        cache, use_kernels)
+    last_logits = _final_logits(params, cfg, x[:, -1:])[0, 0]
+    cache["pos"][slot] = positions[-1] + 1
     return last_logits

@@ -11,12 +11,13 @@ caches hold one entry per layer:
     shape ``(num_blocks, block_size, KV, D)``.
 
 Both caches are updated IN PLACE by the functions below (the reference
-returns new pytrees).  The paged attention layers run either the
-hand-written CUDA kernels (``use_kernels=True``: ``repro_torch.kernels``,
-whose wrappers take their plain versions only for CPU tensors) or the
-plain path of the reference's ``use_pallas=False`` branch (gather the
-logical view, then ``layers.decode_attention`` / ``chunked_attention``),
-which the engine runs on the CPU.
+returns new pytrees).  The paged attention layers (decode, the fused
+ragged prefill and the single-chunk prefill) run either the hand-written
+CUDA kernels (``use_kernels=True``: ``repro_torch.kernels``, whose wrappers
+take their plain versions only for CPU tensors) or the plain path of the
+reference's ``use_pallas=False`` branch (gather the logical view, then
+``layers.decode_attention`` / ``chunked_attention``), which the engine runs
+on the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Optional
 import torch
 
 from .. import resolve_device
+from ..kernels import chunked_prefill_attention as cpa_kernel
 from ..kernels import paged_decode_attention as pfd_kernel
 from ..kernels import ragged_chunked_prefill as rcp_kernel
 from ..kvcache import paged as paged_lib
@@ -85,10 +87,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 def prefill_slot_pos(capacity: int, seq_len: int, device
                      ) -> torch.Tensor:
     """Slot -> absolute-position map after prefilling ``seq_len`` tokens
-    (the bulk lane never wraps: ``max_len`` exceeds every position)."""
-    if seq_len > capacity:
-        raise ValueError(f"prefill of {seq_len} tokens exceeds the ring "
-                         f"capacity {capacity}")
+    from position 0.  A prefill at least as long as the ring keeps its
+    last ``capacity`` positions, rolled by ``seq_len % capacity`` so that
+    position ``p`` sits in slot ``p % capacity`` (the reference's rule)."""
+    if seq_len >= capacity:
+        return torch.roll(torch.arange(seq_len - capacity, seq_len,
+                                       dtype=torch.int32, device=device),
+                          seq_len % capacity)
     out = torch.full((capacity,), EMPTY_POS, dtype=torch.int32,
                      device=device)
     out[:seq_len] = torch.arange(seq_len, dtype=torch.int32, device=device)
@@ -96,10 +101,18 @@ def prefill_slot_pos(capacity: int, seq_len: int, device
 
 
 def prefill_write_kv(cache_k, cache_v, k, v) -> None:
-    """Write a freshly prefilled sequence (rows 0..S-1) in place."""
+    """Write a freshly prefilled sequence (positions 0..S-1) into the
+    (B, W, KV, D) ring in place: rows 0..S-1 when it fits, else its last
+    W rows rolled by ``S % W`` (slot ``p % W`` holds position ``p``)."""
+    Wc = cache_k.shape[1]
     S = k.shape[1]
-    cache_k[:, :S] = k.to(cache_k.dtype)
-    cache_v[:, :S] = v.to(cache_v.dtype)
+    if S >= Wc:
+        shift = S % Wc
+        cache_k.copy_(torch.roll(k[:, S - Wc:], shift, dims=1))
+        cache_v.copy_(torch.roll(v[:, S - Wc:], shift, dims=1))
+    else:
+        cache_k[:, :S] = k.to(cache_k.dtype)
+        cache_v[:, :S] = v.to(cache_v.dtype)
 
 
 def decode_write_kv(cache_k, cache_v, k, v, pos) -> None:
@@ -199,6 +212,37 @@ def _attn_decode_paged(p, x, pages_k, pages_v, pos, tables, cfg,
     return x + layers.attention_out(p["attn"], attn)
 
 
+def _attn_chunk_paged(p, x, pages_k, pages_v, positions, table_row, cfg,
+                      use_kernels: bool):
+    """Chunked-prefill self attention for ONE sequence (batch dim 1).
+
+    x (1, T, D) the in-flight chunk; positions (T,) its absolute positions
+    ``ctx_len .. ctx_len + T - 1``; table_row (nb,) i32.  The chunk's K/V
+    are scattered into the page pools first (in place), then the queries
+    attend over the sequence's pages: full over the prefix, causal within
+    the chunk, through the chunked-prefill kernel or the plain path of the
+    reference (gather the logical view, then ``layers.chunked_attention``,
+    the recipe of the fused path, so the two agree bit for bit)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = layers.attention_qkv(p["attn"], h, positions[None, :],
+                                   cfg.rope_theta)
+    paged_lib.scatter_chunk(pages_k, k[0], table_row, positions[0])
+    paged_lib.scatter_chunk(pages_v, v[0], table_row, positions[0])
+    if use_kernels:
+        attn = cpa_kernel.chunked_prefill_attention(
+            q.contiguous(), pages_k, pages_v, table_row[None, :],
+            positions[:1])
+    else:
+        k_seq = paged_lib.gather_tokens(pages_k, table_row[None, :])
+        v_seq = paged_lib.gather_tokens(pages_v, table_row[None, :])
+        L = k_seq.shape[1]
+        attn = layers.chunked_attention(
+            q, k_seq, v_seq, q_positions=positions,
+            kv_positions=torch.arange(L, dtype=torch.int32, device=x.device),
+            causal=True)
+    return x + layers.attention_out(p["attn"], attn)
+
+
 def _attn_chunks_paged(p, x, pages_k, pages_v, ctx, cfg):
     """Fused ragged chunked-prefill attention over every scheduled chunk
     of one engine iteration (batch dim 1, packed tokens).
@@ -268,9 +312,9 @@ def _mlp_part(p, x, cfg):
 def apply_stack(stack: list, x: torch.Tensor, ctx: dict, cfg,
                 cache: Optional[dict], mode: str) -> torch.Tensor:
     """Run every layer; ``mode`` is ``prefill`` (bulk lane, fills the ring
-    cache), ``decode`` (ring cache), ``decode_paged`` or ``chunks`` (the
-    paged cache).  Caches are updated in place; returns the hidden
-    states."""
+    cache), ``decode`` (ring cache), ``decode_paged``, ``chunk`` or
+    ``chunks`` (the paged cache).  Caches are updated in place; returns
+    the hidden states."""
     for i, p in enumerate(stack):
         lc = cache["layers"][i] if cache is not None else None
         if mode == "prefill":
@@ -283,9 +327,28 @@ def apply_stack(stack: list, x: torch.Tensor, ctx: dict, cfg,
         elif mode == "decode_paged":
             x = _attn_decode_paged(p, x, lc["k"], lc["v"], ctx["pos"],
                                    ctx["tables"], cfg, ctx["use_kernels"])
+        elif mode == "chunk":
+            x = _attn_chunk_paged(p, x, lc["k"], lc["v"], ctx["positions"],
+                                  ctx["table_row"], cfg, ctx["use_kernels"])
         elif mode == "chunks":
             x = _attn_chunks_paged(p, x, lc["k"], lc["v"], ctx, cfg)
         else:
             raise ValueError(f"unknown mode {mode!r}")
         x = _mlp_part(p, x, cfg)
     return x
+
+
+def prefill_chunk_paged(stack: list, x: torch.Tensor,
+                        positions: torch.Tensor, table_row: torch.Tensor,
+                        cfg, cache: dict, use_kernels: bool) -> torch.Tensor:
+    """Run ONE prompt chunk through the stack against the paged cache.
+
+    x (1, T, D) embedded chunk; positions (T,) i32 its absolute positions
+    ``ctx_len .. ctx_len + T - 1``; table_row (nb,) i32.  Every layer
+    scatters the chunk's K/V into its page pools (in place) and attends
+    full over the prefix, causal within the chunk.  Returns the hidden
+    states; the caller (``model.prefill_chunk``) owns the final norm,
+    logits and ``pos``."""
+    ctx = {"positions": positions, "table_row": table_row,
+           "use_kernels": use_kernels}
+    return apply_stack(stack, x, ctx, cfg, cache, "chunk")

@@ -109,20 +109,23 @@ def _not_ported(what: str, item: str):
 class ServingEngine:
     """Continuous, paged, chunked-prefill engine with a pluggable policy.
 
-    ``params`` must live on ``device``; ``device=None`` means the card and
-    raises when none is present.  On the card the model runs the CUDA
-    kernels; on the CPU it runs the reference's plain attention path
-    (``use_pallas=False``)."""
+    ``mode``, ``kv`` and ``prefill`` default to the reference's
+    ``"batch"``, ``"contiguous"`` and ``"stall"``, which are not ported
+    and raise: a caller names the ported path, ``mode="continuous",
+    kv="paged", prefill="chunked"``.  ``params`` must live on ``device``;
+    ``device=None`` means the card and raises when none is present.  On
+    the card the model runs the CUDA kernels; on the CPU it runs the
+    reference's plain attention path (``use_pallas=False``)."""
 
     def __init__(self, params, cfg, policy: sched_lib.Policy,
                  profile: sched_lib.OfflineProfile, *,
                  input_bucket: int = 32, max_new_tokens: int = 32,
-                 xi: float = 2.0, mode: str = "continuous",
-                 eos_id: int = EOS_ID, kv: str = "paged",
+                 xi: float = 2.0, mode: str = "batch",
+                 eos_id: int = EOS_ID, kv: str = "contiguous",
                  num_slots: Optional[int] = None,
                  kv_block_size: int = 16,
                  kv_num_blocks: Optional[int] = None,
-                 prefill: str = "chunked",
+                 prefill: str = "stall",
                  chunk_size: int = 16,
                  token_budget: Optional[int] = None,
                  prefix_cache: bool = False,

@@ -2,8 +2,12 @@
 
 ``generate`` is host-loop greedy decoding of a batch over the contiguous
 ring cache, with early exit when every row is done: the engine's bulk
-lane.  The reference's jitted executable factories have no counterpart:
-PyTorch runs eagerly, so the engine calls ``model.prefill_chunks`` and
+lane.  ``prefill_chunked`` drives one prompt through the single-chunk
+paged prefill (``model.prefill_chunk``), chunk by chunk: what the
+reference's ``make_chunk_prefill_fn`` executable is called for.
+
+The reference's jitted executable factories have no counterpart: PyTorch
+runs eagerly, so the engine calls ``model.prefill_chunks`` and
 ``model.decode_steps_paged`` directly, and keeps the reference's
 shape-key bookkeeping (``exec_cache_hits``/``misses``) on the host.
 """
@@ -48,3 +52,22 @@ def generate(params, cfg, tokens: torch.Tensor, *, max_new_tokens: int,
             done = done | (lengths >= max_lens)
         out.append(token)
     return torch.cat(out, dim=1), lengths
+
+
+@torch.no_grad()
+def prefill_chunked(params, cfg, cache: dict, tokens: torch.Tensor,
+                    slot: int, table_row: torch.Tensor, *, chunk_size: int,
+                    use_kernels: bool) -> torch.Tensor:
+    """Prefill the (1, S) prompt ``tokens`` into the paged cache through
+    ``model.prefill_chunk``, ``chunk_size`` tokens at a time, from
+    position 0.  table_row (nb,) i32 must back every position.
+    Updates ``cache`` in place (pages, ``pos[slot]``); returns the final
+    chunk's last_logits (V,) f32, which feed the first sampled token."""
+    S = tokens.shape[1]
+    if S == 0:
+        raise ValueError("empty prompt")
+    for lo in range(0, S, chunk_size):
+        logits = model_lib.prefill_chunk(
+            params, cfg, cache, tokens[:, lo:lo + chunk_size], slot,
+            table_row, lo, use_kernels=use_kernels)
+    return logits

@@ -16,6 +16,7 @@ the JAX engine.
 """
 
 import dataclasses
+import inspect
 import threading
 
 import numpy as np
@@ -237,6 +238,22 @@ def test_unported_options_are_refused(setup, kw, item):
             setup["tp"], setup["cfg"],
             tsched.POLICIES["fifo"](setup["tpersona"], pcfg),
             setup["tprof"], device="cpu", **base)
+
+
+def test_defaults_are_the_references_and_are_refused(setup):
+    """``mode``, ``kv`` and ``prefill`` default to the reference's values
+    (batch, contiguous, stall), which are not ported: a call that relies
+    on the defaults raises instead of running another mode."""
+    for name in ("mode", "kv", "prefill"):
+        assert (inspect.signature(tengine.ServingEngine).parameters[name]
+                .default == inspect.signature(jengine.ServingEngine)
+                .parameters[name].default)
+    pcfg = setup["tprof"].policy_config()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        tengine.ServingEngine(
+            setup["tp"], setup["cfg"],
+            tsched.POLICIES["fifo"](setup["tpersona"], pcfg),
+            setup["tprof"], device="cpu")
 
 
 def test_other_families_are_refused(setup):

@@ -210,3 +210,49 @@ def test_library_path_keyed_by_sources():
     b = _build.library_path("ragged_chunked_prefill")
     assert a != b and a.parent == b.parent == _build.BUILD_DIR
     assert a == _build.library_path("paged_decode_attention")
+
+
+def test_check_tensors_refuses_what_a_kernel_cannot_take():
+    a = torch.zeros((2, 3), dtype=torch.bfloat16)
+    _build.check_tensors((("a", a, torch.bfloat16),
+                          ("b", a.float(), (torch.bfloat16, torch.float32))))
+    with pytest.raises(TypeError, match="b: torch.float32"):
+        _build.check_tensors((("a", a, torch.bfloat16),
+                              ("b", a.float(), torch.bfloat16)))
+    with pytest.raises(ValueError, match="not contiguous"):
+        _build.check_tensors((("a", a.t(), torch.bfloat16),))
+    with pytest.raises(ValueError, match="b on meta"):
+        _build.check_tensors((("a", a, torch.bfloat16),
+                              ("b", a.to("meta"), torch.bfloat16)))
+
+
+def test_launch_counts_only_launches_that_return_no_error(monkeypatch):
+    """``_build.launch`` passes the stream last, raises on a CUDA error
+    code with the library's message, and counts only a clean launch."""
+    calls = []
+
+    class Symbol:                 # a ctypes function: settable argtypes
+        def __call__(self, *args):
+            calls.append(args)
+            return args[0]
+
+    class Lib:
+        rtlm_fake = Symbol()
+
+        @staticmethod
+        def rtlm_error_string(rc):
+            return b"an error"
+
+    class Stream:
+        cuda_stream = 77
+
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    monkeypatch.setattr(_build.torch.cuda, "current_stream",
+                        lambda device: Stream())
+    monkeypatch.setattr(tpfd, "launches", 5)
+    _build.launch(tpfd, "rtlm_fake", [_build.I], 0, device="cuda")
+    assert calls[-1] == (0, 77) and tpfd.launches == 6
+    assert Lib.rtlm_fake.argtypes == [_build.I, _build.P]
+    with pytest.raises(RuntimeError, match="CUDA error 3 \\(an error\\)"):
+        _build.launch(tpfd, "rtlm_fake", [_build.I], 3, device="cuda")
+    assert tpfd.launches == 6

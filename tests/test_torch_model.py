@@ -10,7 +10,10 @@
     window against ``repro.models.model`` on the float32 starcoder2-3b
     smoke config: logits within a stated tolerance, greedy tokens
     identical, pages equal (see ``_assert_pages`` for the one stated
-    exception); the bulk lane's ring-cache prefill/decode likewise.
+    exception); the single-chunk paged prefill (``prefill_chunk``) chunk
+    by chunk likewise, and bit for bit against the fused path inside the
+    port; the bulk lane's ring-cache prefill/decode, and its ring write
+    when a prefill fills or wraps the ring.
 """
 
 import dataclasses
@@ -34,6 +37,7 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
+from repro_torch.serving import generate as tgen  # noqa: E402
 
 # float32 layers: XLA and PyTorch sum in other orders, O(1) values
 ATOL = 2e-5
@@ -378,6 +382,92 @@ def test_bulk_lane_prefill_and_decode_match_jax(models):
     assert int(tc["pos"]) == int(jc["pos"]) == 11
     np.testing.assert_array_equal(tc["slot_pos"].numpy(),
                                   np.asarray(jc["slot_pos"]))
+
+
+@pytest.mark.parametrize("use_kernels,use_pallas,atol", [
+    (False, False, 2e-3),
+    (False, True, 2e-2),
+    (True, True, 2e-3),
+])
+def test_prefill_chunk_matches_jax(models, use_kernels, use_pallas, atol):
+    """One 19-token prompt in slot 1, chunk by chunk (8, 8, 3 tokens at
+    contexts 0, 8, 16) through ``model.prefill_chunk``, against the JAX
+    function on its plain path and on the Pallas kernel (interpret).  The
+    table row is permuted and longer than the prompt needs.  The plain
+    path casts probabilities to the page dtype before P.V and the kernels
+    keep them in float32, hence the wider tolerance across the two; a
+    flipped bf16 page entry (see _assert_pages) moves logits by ~1e-3."""
+    cfg, jp, tp = models
+    bs, nb, N, slot = 4, 6, 13, 1
+    prompt = np.random.default_rng(3).integers(2, cfg.vocab_size, (1, 19))
+    prompt = prompt.astype(np.int32)
+    row = np.asarray([7, 2, 9, 4, 0, 11], np.int32)
+    jc = jt.init_paged_cache(cfg, 2, N, bs)
+    tc = tt.init_paged_cache(cfg, 2, N, bs, device="cpu")
+    for lo in (0, 8, 16):
+        chunk = prompt[:, lo:lo + 8]
+        jc, jlog = jm.prefill_chunk(jp, cfg, jc, {"tokens": _j(chunk)}, slot,
+                                    _j(row), jnp.int32(lo),
+                                    use_pallas=use_pallas)
+        tlog = tm.prefill_chunk(tp, cfg, tc, _t(chunk), slot, _t(row), lo,
+                                use_kernels=use_kernels)
+        assert tlog.shape == (cfg.padded_vocab,) and tlog.dtype == \
+            torch.float32
+        _close(tlog, jlog, atol=atol)
+        assert int(tlog.argmax()) == int(jlog.argmax())
+        assert int(tc["pos"][slot]) == lo + chunk.shape[1]
+    _assert_pages(tc, jc, cfg)
+
+
+def test_prefill_chunked_equals_fused_prefill_bit_for_bit(models):
+    """Inside the port, on the plain path: a 24-token prompt prefilled by
+    ``generate.prefill_chunked`` (three ``prefill_chunk`` calls of 8) and
+    by three one-chunk ``prefill_chunks`` iterations gives the same final
+    logits and pages, bit for bit (the reference asserts the same,
+    tests/test_chunked_prefill.py:218)."""
+    cfg, _, tp = models
+    bs, nb, N = 4, 6, 7
+    prompt = np.random.default_rng(4).integers(2, cfg.vocab_size, (1, 24))
+    prompt = prompt.astype(np.int32)
+    tables = np.arange(nb, dtype=np.int32)[None]
+    seq = tt.init_paged_cache(cfg, 1, N, bs, device="cpu")
+    seq_log = tgen.prefill_chunked(tp, cfg, seq, _t(prompt), 0,
+                                   _t(tables[0]), chunk_size=8,
+                                   use_kernels=False)
+    fused = tt.init_paged_cache(cfg, 1, N, bs, device="cpu")
+    for lo in (0, 8, 16):
+        (toks, tch, meta, tabs), Tp = _packed(cfg, prompt, [lo], [8],
+                                              tables, N - 1)
+        assert toks.shape == (1, 8) and Tp == 8
+        fused_log = tm.prefill_chunks(tp, cfg, fused, _t(toks), _t(tch),
+                                      _t(meta), _t(tabs), chunk_pad=Tp,
+                                      use_kernels=False)
+    assert torch.equal(seq_log, fused_log[0])
+    for a, b in zip(seq["layers"], fused["layers"]):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+    assert torch.equal(seq["pos"], fused["pos"])
+
+
+@pytest.mark.parametrize("S", [5, 8, 11], ids=["S<W", "S==W", "S>W"])
+def test_ring_prefill_write_and_slot_pos_match_jax(S):
+    """The bulk lane's ring write after a prefill from position 0: rows
+    0..S-1 when the prompt fits, else its last W rows rolled by S % W,
+    exactly as the reference (transformer.py:88-123)."""
+    W = 8
+    ck = _f32(2, W, 2, 4, seed=1)
+    k, v = _f32(2, S, 2, 4, seed=2), _f32(2, S, 2, 4, seed=3)
+    jk, jv, jpos = jt.prefill_write_kv(_j(ck).astype(jnp.bfloat16),
+                                       _j(ck).astype(jnp.bfloat16),
+                                       _j(k), _j(v))
+    tk = _t(ck).to(torch.bfloat16)
+    tv = tk.clone()
+    tt.prefill_write_kv(tk, tv, _t(k), _t(v))
+    _bits_equal(tk, jk)
+    _bits_equal(tv, jv)
+    got = tt.prefill_slot_pos(W, S, "cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jpos))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jt.prefill_slot_pos(W, S)))
 
 
 def test_non_dense_families_are_refused():
