@@ -7,7 +7,9 @@ Phases, in order; any failure exits non-zero:
 
   1. card — name and power limit (``nvidia-smi``), torch/CUDA versions,
      and the build of all six CUDA kernels from ``src/repro_torch/csrc``,
-     one ``nvcc`` per source, all started together;
+     one ``nvcc`` per source, all started together; the ``-Xptxas -v``
+     registers, spills and barriers of the two tensor-core kernels (their
+     shared memory is dynamic, sized at launch, so ptxas does not see it);
   2. kernels — each kernel against its plain PyTorch version on the card
      at full-width shapes (starcoder2-3b: H=24, KV=2, D=128, block 16,
      bf16; the windowed flash attention at h2o-danube-3-4b's H=32, KV=8,
@@ -15,7 +17,9 @@ Phases, in order; any failure exits non-zero:
      |plain| and its mean) and scattered pages bit-equal; median times of
      the kernel, the plain version and a library yardstick (gather + SDPA,
      SDPA or ``F.rms_norm``, timed here only), each with the L2 cache
-     flushed, beside the bound.  Then the kernel API (``kernels.ops``) as
+     flushed, beside the bound (for the two tensor-core kernels also the
+     rate reached and the time over the bound, and the decode's split
+     plan and grid).  Then the kernel API (``kernels.ops``) as
      an entry point: every op once at those shapes, launch counts reset
      just before and read just after, outputs bit-equal to the kernels'
      own;
@@ -96,17 +100,30 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+# cycles of ``torch.cuda._sleep`` queued ahead of a call timed with
+# ``hide_host``: ~0.5 ms at the H100's clocks, longer than the host takes to
+# enqueue any call timed here
+HOST_COVER_CYCLES = 1_000_000
+
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3,
+            hide_host: bool = False) -> float:
     """Median device time of ``fn`` in ms, CUDA events around each call,
     with the 50 MB L2 cache flushed before every call (the serving loop
     finds each layer's pages cold: every other layer's weights and pages
-    pass through L2 between two visits)."""
+    pass through L2 between two visits).  The card is idle when the first
+    event fires, so the time includes what the host spends between it and
+    the launch (for a call of ~0.05 ms, most of it).  ``hide_host`` queues
+    a spin on the card before the first event, so the host has enqueued
+    the call before the card reaches it: the card's own time."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -123,6 +140,28 @@ def bound(bytes_moved: float, flops: float,
     t_ops = flops / flops_per_s * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def achieved(ms: float, bytes_moved: float, flops: float,
+             bound_ms: float) -> dict:
+    """The rates a kernel time reaches on the work the bound counts, and
+    its time over the bound."""
+    return {"tflop_per_s": flops / ms * 1e-9, "gb_per_s": bytes_moved / ms
+            * 1e-6, "ms_over_bound": ms / bound_ms}
+
+
+def ptxas_report(names) -> dict:
+    """Registers, spills and barriers per kernel of each library named,
+    from the ``-Xptxas -v`` log ``_build`` keeps beside it."""
+    from repro_torch.kernels import _build
+    out = {}
+    for name in names:
+        log = _build.library_path(name).with_suffix(".log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        out[name] = [ln.split("info    :")[-1].strip() for ln in lines
+                     if "Compiling entry" in ln or "Used" in ln
+                     or "spill" in ln]
+    return out
 
 
 def held(what: str, out, ref, shares: dict) -> float:
@@ -429,16 +468,26 @@ def check_flash_decode(torch, F, kmod) -> dict:
     valid = int(mask_np.sum())
     bytes_moved = (2 * q.numel() * 2 + B * S + 2 * valid * KV * D * 2)
     b_ms, b_by = bound(bytes_moved, 4 * valid * H * D)
+    run = lambda: kmod.flash_decode_attention(q, kc, vc, mask)  # noqa: E731
+    ms = time_ms(torch, run)
+    device_ms = time_ms(torch, run, hide_host=True)
+    n_splits, per = kmod.split_plan(B, H, KV, S, kmod._sm_count(q.device))
     return {
-        "max_abs_err": err, "limit_share": shares,
-        "ms": time_ms(torch, lambda: kmod.flash_decode_attention(
-            q, kc, vc, mask)),
+        "max_abs_err": err, "limit_share": shares, "ms": ms,
         "plain_ms": time_ms(torch, lambda: kmod.decode_attention_ref(
             q, kc, vc, mask)),
         "library_ms": time_ms(torch, library),
         "bound_ms": b_ms, "bound_by": b_by,
+        "achieved": achieved(ms, bytes_moved, 4 * valid * H * D, b_ms),
+        "device_ms": device_ms,
+        "library_device_ms": time_ms(torch, library, hide_host=True),
+        "device_achieved": achieved(device_ms, bytes_moved,
+                                    4 * valid * H * D, b_ms),
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D,
-                  "valid_slots": valid},
+                  "valid_slots": valid, "n_splits": n_splits,
+                  "tiles_per_split": per,
+                  "grid": [KV * -(-(H // KV) // kmod.ROW_BLOCK), B,
+                           n_splits]},
         "ops": [("flash_decode_attention",
                  lambda ops: ops.flash_decode_attention(q, kc, vc, mask),
                  out)],
@@ -481,13 +530,21 @@ def check_flash_attention(torch, F, kmod) -> dict:
                 qt, kt, vt, attn_mask=wmask, enable_gqa=True)
             pairs = sum(min(j + 1, W) for j in range(S))
         bytes_moved = 2 * S * Hc * Dc * 2 + 2 * S * KVc * Dc * 2
-        b_ms, b_by = bound(bytes_moved, 4 * pairs * Hc * Dc)
+        flops = 4 * pairs * Hc * Dc
+        b_ms, b_by = bound(bytes_moved, flops)
+        ms = time_ms(torch, run)
+        device_ms = time_ms(torch, run, hide_host=True)
         res.append({
-            "max_abs_err": err, "ms": time_ms(torch, run),
+            "max_abs_err": err, "ms": ms,
             "plain_ms": time_ms(torch, lambda: kmod.attention_ref(
                 q, k, v, causal=True, window=W), reps=5),
             "library_ms": time_ms(torch, library),
             "bound_ms": b_ms, "bound_by": b_by,
+            "achieved": achieved(ms, bytes_moved, flops, b_ms),
+            "device_ms": device_ms,
+            "library_device_ms": time_ms(torch, library, hide_host=True),
+            "device_achieved": achieved(device_ms, bytes_moved, flops,
+                                        b_ms),
             "shape": {"B": 1, "S": S, "H": Hc, "KV": KVc, "D": Dc,
                       "causal": True, "window": W}})
         calls.append((f"flash_attention S={S}",
@@ -864,6 +921,10 @@ def main() -> int:
     build_s = _build.build([m.NAME for m in KERNELS])
     print(f"kernel build: {json.dumps(build_s)} "
           f"(wall {time.perf_counter() - t0:.1f} s)", flush=True)
+    for name, lines in ptxas_report(("flash_attention",
+                                     "flash_decode_attention")).items():
+        for ln in lines:
+            print(f"ptxas {name}: {ln}", flush=True)
 
     # -- phase 2: kernels vs plain versions, then the ops path
     checks = {}

@@ -33,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-COMMON = ("attn_common.cuh", "rtlm_api.cuh")
+COMMON = ("attn_common.cuh", "mma_attn.cuh", "rtlm_api.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -133,6 +133,30 @@ def check_tensors(specs: Sequence[Tuple[str, torch.Tensor, DTypes]]) -> None:
                             + " or ".join(str(a) for a in allowed))
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+
+
+#: the head dims the tensor-core attention kernels are compiled for
+#: (csrc/mma_attn.cuh): a head dim is zero-padded up to the next one
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def padded_head_dim(D: int) -> int:
+    """The compile-time width the tensor-core attention kernels pad head
+    dim ``D`` to; raises for a ``D`` they do not take (their 16-byte
+    copies need a multiple of 8)."""
+    if D > 0 and D % 8 == 0:
+        for p in HEAD_DIMS:
+            if D <= p:
+                return p
+    raise ValueError(f"head dim {D}: the tensor-core attention kernels take "
+                     f"a multiple of 8 up to {HEAD_DIMS[-1]}")
+
+
+def check_aligned(specs: Sequence[Tuple[str, torch.Tensor]]) -> None:
+    """Each tensor starts on a 16-byte boundary (16-byte copies)."""
+    for name, t in specs:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
 
 
 def launch(module: ModuleType, symbol: str, argtypes: Sequence, *args,

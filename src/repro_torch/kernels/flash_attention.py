@@ -8,7 +8,8 @@ with GQA and positions aligned; key ``j`` is attended by query ``i`` iff
 Online softmax in float32.
 
 Dispatch: a CUDA tensor launches the kernel in ``csrc/flash_attention.cu``
-(bf16 only, ``window`` None or positive) or raises; a CPU tensor takes the
+(bf16 only, ``window`` None or positive, head dim a multiple of 8 up to
+256, tensors on 16-byte boundaries) or raises; a CPU tensor takes the
 plain version (``ref.attention_ref``).  ``launches`` counts kernel
 launches.
 """
@@ -45,6 +46,8 @@ def _check(q, k, v, window) -> None:
     _build.check_tensors((("q", q, torch.bfloat16),
                           ("k", k, torch.bfloat16),
                           ("v", v, torch.bfloat16)))
+    _build.padded_head_dim(D)
+    _build.check_aligned((("q", q), ("k", k), ("v", v)))
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -88,6 +88,53 @@ def decode_attention_ref(q, k_cache, v_cache, mask):
                              mask[:, None, :])[:, 0]
 
 
+def decode_split_partials(q, k_cache, v_cache, mask, n_splits: int,
+                          tile: int = 64):
+    """The first pass of the split-K flash-decode kernel, in plain
+    PyTorch (a model of its arithmetic for the tests; no caller on the
+    card path).  Each cache row is cut into ``n_splits`` ranges of
+    ``ceil(ceil(S / tile) / n_splits) * tile`` slots; range ``i`` gives
+    float32 ``m`` (the max valid score, ``NEG_INF`` if none), ``l`` (the
+    sum of ``exp(s - m)`` over its valid slots) and ``acc`` (those
+    weights times the values).  A range with no valid slot, or none at
+    all, gives ``m = NEG_INF``, ``l = 0``, ``acc = 0``.  Returns
+    ``m, l`` (B, H, n_splits) and ``acc`` (B, H, n_splits, D).  The
+    kernel works in base 2 (scores times log2 e), the same weights."""
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    kf = torch.repeat_interleave(k_cache.float(), G, dim=2)   # (B, S, H, D)
+    vf = torch.repeat_interleave(v_cache.float(), G, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), kf) / (D ** 0.5)
+    valid = mask[:, None, :].expand(B, H, S)
+    s = torch.where(valid, s, NEG_INF)
+    per = -(-max(1, -(-S // tile)) // n_splits) * tile
+    ms, ls, accs = [], [], []
+    for i in range(n_splits):
+        lo, hi = min(S, i * per), min(S, (i + 1) * per)
+        si, vi = s[..., lo:hi], valid[..., lo:hi]
+        m = (si.amax(dim=-1) if hi > lo
+             else torch.full((B, H), NEG_INF, device=q.device))
+        p = torch.where(vi, torch.exp(si - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhs,bshd->bhd", p, vf[:, lo:hi]))
+    return (torch.stack(ms, dim=-1), torch.stack(ls, dim=-1),
+            torch.stack(accs, dim=-2))
+
+
+def combine_split_partials(m, l, acc, dtype=torch.float32):
+    """The split-K kernel's second pass: ``M = max_i m_i``, ``L = sum_i
+    l_i e^(m_i - M)``, ``out = sum_i acc_i e^(m_i - M) / max(L, 1e-30)``,
+    cast to ``dtype``.  A row whose every range is empty (``l = 0``,
+    ``acc = 0``) comes out exactly zero."""
+    M = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - M)
+    L = (l * w).sum(dim=-1)
+    out = (acc * w[..., None]).sum(dim=-2)
+    return (out / torch.clamp(L, min=1e-30)[..., None]).to(dtype)
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens):
     """q (B, H, D); pages (N, bs, KV, D); block_tables (B, nb) i32;
     seq_lens (B,) i32 -> (B, H, D).  Key position p of row b is attended

@@ -158,10 +158,55 @@ def test_cuda_flash_decode_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_splits", [1, 3])
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (2, 1000, 24, 2, 128),                  # starcoder2-3b heads
+    (3, 300, 32, 8, 120),                   # h2o-danube-3-4b's D
+    (2, 500, 16, 1, 256),                   # recurrentgemma-9b: D, G = 16
+    (2, 260, 8, 2, 32),
+    (2, 200, 4, 4, 64),                     # G = 1
+])
+def test_cuda_flash_decode_kernel_splits_match_plain(cuda, monkeypatch, B,
+                                                     S, H, KV, D, n_splits):
+    """Several splits of S (the card's own plan, then the plan for an SM
+    count that aims at ``n_splits``): row 0 has two wholly masked
+    64-slot tiles in the middle, row 1 valid slots only in its first
+    tile (every later split all-masked), the last row none (zeros)."""
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    q = torch.randn((B, H, D), generator=g, device=cuda).bfloat16()
+    kc = torch.randn((B, S, KV, D), generator=g, device=cuda).bfloat16()
+    vc = torch.randn((B, S, KV, D), generator=g, device=cuda).bfloat16()
+    mask = torch.rand((B, S), generator=g, device=cuda) < 0.7
+    mask[0, 64:192] = False
+    mask[1, 37:] = False
+    mask[-1] = False
+    sms = tfd._sm_count(cuda)
+    if n_splits > 1:
+        groups = B * KV * -(-(H // KV) // tfd.ROW_BLOCK)
+        sms = -(-n_splits * groups // tfd.CTAS_PER_SM)
+        monkeypatch.setattr(tfd, "_sm_count", lambda _device: sms)
+    plan = tfd.split_plan(B, H, KV, S, sms)
+    assert plan[0] > 1 and plan[0] * plan[1] * tfd.TILE >= S
+    before = tfd.launches
+    out = tfd.flash_decode_attention(q, kc, vc, mask)
+    torch.cuda.synchronize()
+    assert tfd.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert within(out, ref.decode_attention_ref(q, kc, vc, mask))
+    assert out[-1].abs().max() == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S,H,KV,D,causal,window", [
     (200, 8, 2, 128, True, None),
     (150, 8, 4, 120, True, 64),             # h2o-danube-3-4b's D
     (90, 4, 4, 64, False, None),
+    (130, 8, 2, 32, True, None),            # smoke configs' D
+    (200, 8, 1, 112, True, None),           # kimi-k2's D
+    (77, 16, 1, 256, True, None),           # recurrentgemma-9b's D, G = 16
+    (140, 4, 2, 128, False, 48),            # non-causal, windowed
+    (70, 4, 4, 128, True, 33),              # G = 1, windowed
+    (300, 8, 2, 64, True, 100),             # window not a tile multiple
 ])
 def test_cuda_flash_attention_kernel_matches_plain(cuda, S, H, KV, D,
                                                    causal, window):
@@ -175,6 +220,43 @@ def test_cuda_flash_attention_kernel_matches_plain(cuda, S, H, KV, D,
     assert tfa.launches == before + 1
     assert within(out, ref.attention_ref(q, k, v, causal=causal,
                                           window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (70, 150, True, None),                  # keys past the last query
+    (150, 70, True, None),                  # queries past the last key
+    (150, 70, False, 40),                   # rows 109.. see no key: zeros
+    (100, 260, False, 64),
+])
+def test_cuda_flash_attention_unequal_lengths(cuda, Sq, Sk, causal, window):
+    H, KV, D = 8, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(Sq * 1000 + Sk)
+    q = torch.randn((2, Sq, H, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, Sk, KV, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((2, Sk, KV, D), generator=g, device=cuda).bfloat16()
+    out = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert within(out, want)
+    if window is not None and Sq > Sk + window:
+        assert out[:, Sk + window:].abs().max() == 0
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_refuse_other_head_dims(cuda):
+    """A head dim the tensor-core kernels are not built for raises before
+    any launch."""
+    for D in (100, 264):
+        x = torch.zeros((1, 8, 2, D), device=cuda, dtype=torch.bfloat16)
+        before = (tfa.launches, tfd.launches)
+        with pytest.raises(ValueError, match="head dim"):
+            tfa.flash_attention(x, x, x)
+        with pytest.raises(ValueError, match="head dim"):
+            tfd.flash_decode_attention(x[:, 0], x, x,
+                                       torch.ones((1, 8), dtype=torch.bool,
+                                                  device=cuda))
+        assert (tfa.launches, tfd.launches) == before
 
 
 @pytest.mark.cuda
