@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero:
   1. card — name and power limit (``nvidia-smi``), torch/CUDA versions,
      and the build of all six CUDA kernels from ``src/repro_torch/csrc``,
      one ``nvcc`` per source, all started together; the ``-Xptxas -v``
-     registers, spills and barriers of the two tensor-core kernels (their
-     shared memory is dynamic, sized at launch, so ptxas does not see it);
+     registers, spills and barriers of the three tensor-core kernels and
+     RMSNorm (the attention kernels' shared memory is dynamic, sized at
+     launch, so ptxas does not see it);
   2. kernels — each kernel against its plain PyTorch version on the card
      at full-width shapes (starcoder2-3b: H=24, KV=2, D=128, block 16,
      bf16; the windowed flash attention at h2o-danube-3-4b's H=32, KV=8,
@@ -17,9 +18,11 @@ Phases, in order; any failure exits non-zero:
      |plain| and its mean) and scattered pages bit-equal; median times of
      the kernel, the plain version and a library yardstick (gather + SDPA,
      SDPA or ``F.rms_norm``, timed here only), each with the L2 cache
-     flushed, beside the bound (for the two tensor-core kernels also the
-     rate reached and the time over the bound, and the decode's split
-     plan and grid).  Then the kernel API (``kernels.ops``) as
+     flushed, beside the bound (for the three tensor-core kernels and
+     RMSNorm also the time with the host hidden, ``device_ms``, beside the
+     library call's, the rate reached and the time over the bound, and the
+     two decode kernels' split plans and grids).  Then the kernel API
+     (``kernels.ops``) as
      an entry point: every op once at those shapes, launch counts reset
      just before and read just after, outputs bit-equal to the kernels'
      own;
@@ -35,7 +38,8 @@ Phases, in order; any failure exits non-zero:
      prefill="chunked", decode_steps=4)`` under the RT-LM policy serves 32
      requests at full width; the kernels' launch counts are reset just
      before and read just after.  The same serve runs once more under
-     ``torch.profiler`` for the device's busy time and the kernels' share.
+     ``torch.profiler`` for the device's busy time and the kernels' share
+     (the paged decode's split and combine kernels, the fused prefill).
 
 Then one JSON line of kernel results (each kernel's launches from the path
 that runs it: decode and ragged prefill from phase 4, chunked prefill from
@@ -106,6 +110,19 @@ def card_line() -> str:
 HOST_COVER_CYCLES = 1_000_000
 
 
+def _time_call(torch, fn, flush, hide_host: bool) -> float:
+    flush.zero_()
+    if hide_host:
+        torch.cuda._sleep(HOST_COVER_CYCLES)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3,
             hide_host: bool = False) -> float:
     """Median device time of ``fn`` in ms, CUDA events around each call,
@@ -116,22 +133,27 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3,
     the launch (for a call of ~0.05 ms, most of it).  ``hide_host`` queues
     a spin on the card before the first event, so the host has enqueued
     the call before the card reaches it: the card's own time."""
+    return time_in_turns(torch, {"fn": fn}, reps, warmup, hide_host)["fn"]
+
+
+def time_in_turns(torch, fns: dict, reps: int = 20, warmup: int = 3,
+                  hide_host: bool = False) -> dict:
+    """``time_ms`` of each of ``fns`` (name -> callable), taken in turns:
+    each rep times every one, in order on even reps and in reverse on odd
+    ones, so a drift of the host or the card during the measurement falls
+    on all of them alike (a kernel and its yardstick are compared inside
+    one call, in turns)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        if hide_host:
-            torch.cuda._sleep(HOST_COVER_CYCLES)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for i in range(reps):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            times[name].append(_time_call(torch, fns[name], flush,
+                                          hide_host))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def bound(bytes_moved: float, flops: float,
@@ -235,16 +257,32 @@ def check_decode(torch, F, kmod) -> dict:
                    + 2 * live * KV * D * 2)
     flops = 4 * live * H * D
     b_ms, b_by = bound(bytes_moved, flops)
+    run = lambda: kmod.paged_flash_decode_attention(  # noqa: E731
+        q, kp, vp, tab, sl)
+    host = time_in_turns(torch, {"kernel": run, "library": library})
+    dev = time_in_turns(torch, {"kernel": run, "library": library},
+                        hide_host=True)
+    ms, device_ms = host["kernel"], dev["kernel"]
+    from repro_torch.kernels import flash_decode_attention as fd
+    n_splits, per = fd.split_plan(B, H, KV, nb * BS, fd._sm_count(q.device))
+    grid = [KV * -(-(H // KV) // fd.ROW_BLOCK), B, n_splits]
+    print(f"paged decode split plan: {n_splits} splits of {per} tile(s) "
+          f"of {fd.TILE} positions over nb * bs = {nb * BS}, grid {grid} "
+          f"({grid[0] * grid[1] * grid[2]} CTAs) + {B * H} combine CTAs",
+          flush=True)
     return {
-        "max_abs_err": err, "limit_share": shares,
-        "ms": time_ms(torch, lambda: kmod.paged_flash_decode_attention(
-            q, kp, vp, tab, sl)),
+        "max_abs_err": err, "limit_share": shares, "ms": ms,
         "plain_ms": time_ms(torch, lambda: kmod.paged_decode_attention_ref(
             q, kp, vp, tab, sl)),
-        "library_ms": time_ms(torch, library),
+        "library_ms": host["library"],
         "bound_ms": b_ms, "bound_by": b_by,
+        "achieved": achieved(ms, bytes_moved, flops, b_ms),
+        "device_ms": device_ms,
+        "library_device_ms": dev["library"],
+        "device_achieved": achieved(device_ms, bytes_moved, flops, b_ms),
         "shape": {"B": B, "H": H, "KV": KV, "D": D, "bs": BS, "nb": nb,
-                  "live_tokens": live},
+                  "live_tokens": live, "n_splits": n_splits,
+                  "tiles_per_split": per, "grid": grid},
         "ops": [ops_call],
     }
 
@@ -560,30 +598,43 @@ def check_flash_attention(torch, F, kmod) -> dict:
 
 def check_rms_norm(torch, F, kmod) -> dict:
     """x (2048, 3072) and (16, 3072) bf16 (a prefill's and a decode
-    step's rows at starcoder2-3b's d_model), eps 1e-6.  The top-level
-    numbers are the 2048-row case's; ``decode_rows`` holds the other."""
+    step's rows at starcoder2-3b's d_model), eps 1e-6, and (8192, 3072),
+    whose extra bytes over the 2048-row case give the kernel's streaming
+    rate apart from the fixed cost of a call.  The top-level numbers are
+    the 2048-row case's; ``decode_rows`` and ``rows_8192`` hold the
+    others."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     w = (torch.randn((RMS_D,), generator=gen, device="cuda") * 0.1).to(
         torch.bfloat16)
     w1 = 1.0 + w
     res, calls, shares = [], [], {}
-    for n in (2048, NUM_SLOTS):
+    for n in (2048, NUM_SLOTS, 8192):
         x = torch.randn((n, RMS_D), generator=gen, device="cuda").to(
             torch.bfloat16)
         out = kmod.rms_norm(x, w, 1e-6)
         torch.cuda.synchronize()
         err = held(f"rms_norm {n} rows", out,
                    kmod.rms_norm_ref(x, w, 1e-6), shares)
-        b_ms, b_by = bound(2 * x.numel() * 2 + w.numel() * 2,
-                           4 * x.numel(), FP32_FLOPS_PER_S)
+        bytes_moved = 2 * x.numel() * 2 + w.numel() * 2
+        b_ms, b_by = bound(bytes_moved, 4 * x.numel(), FP32_FLOPS_PER_S)
+        run = lambda x=x: kmod.rms_norm(x, w, 1e-6)  # noqa: E731
+        library = lambda x=x: F.rms_norm(  # noqa: E731
+            x, (RMS_D,), weight=w1, eps=1e-6)
+        host = time_in_turns(torch, {"kernel": run, "library": library})
+        dev = time_in_turns(torch, {"kernel": run, "library": library},
+                            hide_host=True)
+        ms, device_ms = host["kernel"], dev["kernel"]
         res.append({
-            "max_abs_err": err,
-            "ms": time_ms(torch, lambda: kmod.rms_norm(x, w, 1e-6)),
+            "max_abs_err": err, "ms": ms,
             "plain_ms": time_ms(torch, lambda: kmod.rms_norm_ref(x, w,
                                                                  1e-6)),
-            "library_ms": time_ms(torch, lambda: F.rms_norm(
-                x, (RMS_D,), weight=w1, eps=1e-6)),
+            "library_ms": host["library"],
             "bound_ms": b_ms, "bound_by": b_by,
+            "achieved": achieved(ms, bytes_moved, 4 * x.numel(), b_ms),
+            "device_ms": device_ms,
+            "library_device_ms": dev["library"],
+            "device_achieved": achieved(device_ms, bytes_moved,
+                                        4 * x.numel(), b_ms),
             "shape": {"rows": n, "D": RMS_D, "dtype": "bfloat16"}})
         calls.append((f"rms_norm {n} rows",
                       lambda ops, x=x: ops.rms_norm(x, w, eps=1e-6), out))
@@ -591,6 +642,7 @@ def check_rms_norm(torch, F, kmod) -> dict:
     top["max_abs_err"] = max(r["max_abs_err"] for r in res)
     top["limit_share"] = shares
     top["decode_rows"] = res[1]
+    top["rows_8192"] = res[2]
     top["ops"] = calls
     return top
 
@@ -771,10 +823,18 @@ def check_single_chunk(torch, cfg, params, kmods) -> dict:
     return out
 
 
+# the device kernels of the engine path's two port kernels
+# (csrc/paged_decode_attention.cu, csrc/ragged_chunked_prefill.cu)
+PROFILE_TAGS = ("paged_decode_split_kernel", "paged_decode_combine_kernel",
+                "ragged_prefill_kernel")
+
+
 def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
     """One call of ``fn`` under ``torch.profiler``: wall time, the summed
-    device time of its kernels (busy), the idle share, and the two port
-    kernels' device time and share of the busy time.  "not measured" if
+    device time of its kernels (busy), the idle share, and the engine
+    path's port kernels' device time and share of the busy time (the
+    paged decode as its split and combine kernels and their sum
+    ``paged_decode``, the fused prefill).  "not measured" if
     the profiler reports no device time.  ``warm`` calls ``fn`` once
     before; ``cpu=False`` records device activity only (a whole serve
     launches millions of operations)."""
@@ -799,9 +859,11 @@ def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
             continue
         t = e.duration_ns() * 1e-9
         busy += t
-        for tag in ("paged_decode_kernel", "ragged_prefill_kernel"):
+        for tag in PROFILE_TAGS:
             if tag in e.name():
                 ours[tag] = ours.get(tag, 0.0) + t
+    ours["paged_decode"] = sum(ours.get(tag, 0.0) for tag in PROFILE_TAGS
+                               if tag.startswith("paged_decode"))
     if busy <= 0.0:
         return {"wall_s": wall, "device_busy_s": "not measured"}
     return {"wall_s": wall, "device_busy_s": busy,
@@ -922,7 +984,9 @@ def main() -> int:
     print(f"kernel build: {json.dumps(build_s)} "
           f"(wall {time.perf_counter() - t0:.1f} s)", flush=True)
     for name, lines in ptxas_report(("flash_attention",
-                                     "flash_decode_attention")).items():
+                                     "flash_decode_attention",
+                                     "paged_decode_attention",
+                                     "rms_norm")).items():
         for ln in lines:
             print(f"ptxas {name}: {ln}", flush=True)
 

@@ -1,5 +1,6 @@
 // Shared device code of the port's tensor-core attention kernels
-// (flash_attention.cu, flash_decode_attention.cu).  _build.py hashes the
+// (flash_attention.cu, and the two split-K decode kernels through
+// split_decode.cuh).  _build.py hashes the
 // shared headers into every library's name, so an edit here rebuilds all
 // of them.
 //
@@ -112,18 +113,41 @@ __device__ __forceinline__ void split_hi_lo(float x0, float x1, uint32_t& hi,
   lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
-// Copy `rows` rows of D bf16 (row r at src + r * stride) into smem rows of
-// stride DP + 8, 16 bytes a thread per step; the pad columns [D, DP) and a
-// row r with !ok(r) are zero-filled.  All threads of the block take part.
-template <int DP, typename Ok>
+// Copy `rows` rows of D bf16 into smem rows of stride DP + 8, 16 bytes a
+// thread per step: row r from src + off(r) elements, or zeros where
+// off(r) < 0 (a row that must not be read).  The pad columns [D, DP) are
+// zero-filled.  off is the row-to-address rule: a stride over a
+// contiguous cache, or a block-table lookup over a paged one.  All
+// THREADS threads of the block take part.
+template <int DP, int THREADS, typename Off>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int64_t stride, int rows, int D,
-                                          Ok ok) {
+                                          int rows, int D, Off off) {
   constexpr int LD = DP + 8, CH = DP / 8;
-  for (int e = threadIdx.x; e < rows * CH; e += blockDim.x) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < rows * CH; e += THREADS) {
     const int r = e / CH, c = e % CH;
-    const bool v = ok(r) && c * 8 < D;
-    cp_async16(dst + r * LD + c * 8, src + (v ? r * stride + c * 8 : 0), v);
+    const int64_t o = off(r);
+    const bool v = o >= 0 && c * 8 < D;
+    cp_async16(dst + r * LD + c * 8, src + (v ? o + c * 8 : 0), v);
+  }
+}
+
+// The same for a key and a value tile whose rows lie at the same offsets
+// from k_src and v_src, so off(r) is evaluated once for both.
+template <int DP, int THREADS, typename Off>
+__device__ __forceinline__ void load_kv_rows(bf16* k_dst, bf16* v_dst,
+                                             const bf16* k_src,
+                                             const bf16* v_src, int rows,
+                                             int D, Off off) {
+  constexpr int LD = DP + 8, CH = DP / 8;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < rows * CH; e += THREADS) {
+    const int r = e / CH, c = e % CH;
+    const int64_t o = off(r);
+    const bool v = o >= 0 && c * 8 < D;
+    const int64_t at = v ? o + c * 8 : 0;
+    cp_async16(k_dst + r * LD + c * 8, k_src + at, v);
+    cp_async16(v_dst + r * LD + c * 8, v_src + at, v);
   }
 }
 

@@ -33,7 +33,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-COMMON = ("attn_common.cuh", "mma_attn.cuh", "rtlm_api.cuh", "wgmma.cuh")
+COMMON = ("attn_common.cuh", "mma_attn.cuh", "rtlm_api.cuh",
+          "split_decode.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -159,17 +160,35 @@ def check_aligned(specs: Sequence[Tuple[str, torch.Tensor]]) -> None:
             raise ValueError(f"{name} does not start on a 16-byte boundary")
 
 
+def current_stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream: what
+    ``torch.cuda.current_stream(device).cuda_stream`` returns, without
+    building a Stream object for every launch (the decode loop is
+    host-bound, one launch per layer and step)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+#: (library, symbol) -> the ctypes function, its argument types set once
+_symbols: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+
+
 def launch(module: ModuleType, symbol: str, argtypes: Sequence, *args,
            device: torch.device) -> None:
     """Call ``symbol`` of the library of ``module.NAME`` with ``args`` and
     the current stream of ``device`` as its last argument, raise if it
     returns a CUDA error code, and add one to ``module.launches``."""
-    lib = load(module.NAME)
-    fn = getattr(lib, symbol)
-    fn.argtypes = [*argtypes, P]
-    fn.restype = ctypes.c_int
-    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    key = (module.NAME, symbol)
+    fn = _symbols.get(key)
+    if fn is None:
+        fn = getattr(load(module.NAME), symbol)
+        fn.argtypes = [*argtypes, P]
+        fn.restype = ctypes.c_int
+        _symbols[key] = fn
+    rc = fn(*args, current_stream(device))
     if rc != 0:
-        msg = lib.rtlm_error_string(rc).decode()
+        msg = load(module.NAME).rtlm_error_string(rc).decode()
         raise RuntimeError(f"{module.NAME}: CUDA error {rc} ({msg})")
     module.launches += 1

@@ -37,7 +37,7 @@ NAME = "flash_decode_attention"
 SOURCE = "src/repro_torch/csrc/flash_decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:66"
 
-#: slots per tile (csrc/flash_decode_attention.cu, kTileKeys): the shortest
+#: slots per tile (csrc/split_decode.cuh, kTileKeys): the shortest
 #: split, and the unit a split's length is counted in
 TILE = 64
 #: query heads of a KV group one CTA holds (G is padded up to this)
@@ -52,10 +52,13 @@ _self = sys.modules[__name__]
 
 def split_plan(B: int, H: int, KV: int, S: int,
                sm_count: int) -> Tuple[int, int]:
-    """``(n_splits, tiles_per_split)`` for a call of the kernel: enough
-    splits of each cache row for about ``CTAS_PER_SM`` CTAs per SM over
-    the ``B * KV * ceil(G / 16)`` groups, never a split shorter than one
-    ``TILE``-slot tile, and no empty split (the last may be shorter)."""
+    """``(n_splits, tiles_per_split)`` for a call of a split-K decode
+    kernel (this one, and ``paged_decode_attention`` with ``S = nb * bs``
+    logical positions): enough splits of each cache row for about
+    ``CTAS_PER_SM`` CTAs per SM over the ``B * KV * ceil(G / 16)``
+    groups, never a split shorter than one ``TILE``-slot tile, and no
+    empty split (the last may be shorter).  Shapes only: no data is
+    read."""
     groups = B * KV * -(-(H // KV) // ROW_BLOCK)
     n_tiles = max(1, -(-S // TILE))
     want = max(1, CTAS_PER_SM * sm_count // max(1, groups))

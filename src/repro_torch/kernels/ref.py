@@ -123,6 +123,29 @@ def decode_split_partials(q, k_cache, v_cache, mask, n_splits: int,
             torch.stack(accs, dim=-2))
 
 
+def paged_decode_split_partials(q, k_pages, v_pages, block_tables, seq_lens,
+                                n_splits: int, tile: int = 64):
+    """The first pass of the split-K paged decode kernel, in plain
+    PyTorch (a model of its arithmetic for the tests; no caller on the
+    card path): ``decode_split_partials`` over each sequence's ``nb * bs``
+    logical positions, position ``p`` being row ``p % bs`` of page
+    ``block_tables[b, p // bs]``, attended iff ``p < seq_lens[b]``.  As
+    in the kernel, a position past ``seq_len`` never indexes the pools,
+    so table entries past a sequence's live pages may hold anything.  A
+    range wholly past ``seq_len`` gives the empty partial (``m =
+    NEG_INF``, ``l = 0``, ``acc = 0``)."""
+    N, bs = k_pages.shape[:2]
+    L = block_tables.shape[1] * bs
+    pos = torch.arange(L, device=q.device)
+    live = pos[None, :] < seq_lens.long()[:, None]                # (B, L)
+    rows = torch.where(live, block_tables.long()[:, pos // bs] * bs
+                       + pos % bs, 0)
+    feat = tuple(k_pages.shape[2:])
+    k = k_pages.reshape((N * bs,) + feat)[rows]                   # (B, L, ...)
+    v = v_pages.reshape((N * bs,) + feat)[rows]
+    return decode_split_partials(q, k, v, live, n_splits, tile=tile)
+
+
 def combine_split_partials(m, l, acc, dtype=torch.float32):
     """The split-K kernel's second pass: ``M = max_i m_i``, ``L = sum_i
     l_i e^(m_i - M)``, ``out = sum_i acc_i e^(m_i - M) / max(L, 1e-30)``,

@@ -29,8 +29,17 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_cuda_paged_decode_kernel_matches_plain(cuda):
-    B, H, KV, D, bs, nb = 4, 24, 2, 128, 16, 6
+@pytest.mark.parametrize("n_splits", [0, 3])
+@pytest.mark.parametrize("D", [64, 120, 128])
+@pytest.mark.parametrize("bs,nb", [(16, 6), (16, 20), (48, 7)])
+def test_cuda_paged_decode_kernel_matches_plain(cuda, monkeypatch, bs, nb,
+                                                D, n_splits):
+    """Permuted tables, lengths 0 (zeros), 1, 37 and the whole table; the
+    card's own split plan (``n_splits`` 0), then the plan for an SM count
+    that aims at 3 splits (as many as the table has tiles, where fewer):
+    splits wholly past a short sequence write empty partials.  bs 48
+    does not divide the 64-slot tile."""
+    B, H, KV = 4, 24, 2
     N = B * nb + 1
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((B, H, D), generator=g, device=cuda).bfloat16()
@@ -39,13 +48,35 @@ def test_cuda_paged_decode_kernel_matches_plain(cuda):
     tab = torch.randperm(N - 1, generator=g, device=cuda)[:B * nb].view(
         B, nb).int()
     lens = torch.tensor([0, 1, 37, nb * bs], dtype=torch.int32, device=cuda)
+    n_tiles = -(-nb * bs // tfd.TILE)
+    if n_splits:
+        groups = B * KV * -(-(H // KV) // tfd.ROW_BLOCK)
+        sms = -(-n_splits * groups // tfd.CTAS_PER_SM)
+        monkeypatch.setattr(tfd, "_sm_count", lambda _device: sms)
+        assert tfd.split_plan(B, H, KV, nb * bs, sms)[0] == min(n_splits,
+                                                                n_tiles)
     before = tpfd.launches
     out = tpfd.paged_flash_decode_attention(q, kp, vp, tab, lens)
     torch.cuda.synchronize()
     assert tpfd.launches == before + 1
+    assert torch.isfinite(out.float()).all()
     assert within(out, tpfd.paged_decode_attention_ref(q, kp, vp, tab,
                                                        lens))
     assert out[0].abs().max() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [100, 264])
+def test_cuda_paged_decode_refuses_other_head_dims(cuda, D):
+    """A head dim the kernel is not built for raises before any launch."""
+    q = torch.zeros((2, 4, D), device=cuda, dtype=torch.bfloat16)
+    pages = torch.zeros((5, 16, 2, D), device=cuda, dtype=torch.bfloat16)
+    tab = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    lens = torch.ones((2,), dtype=torch.int32, device=cuda)
+    before = tpfd.launches
+    with pytest.raises(ValueError, match="head dim"):
+        tpfd.paged_flash_decode_attention(q, pages, pages, tab, lens)
+    assert tpfd.launches == before
 
 
 @pytest.mark.cuda
@@ -259,14 +290,34 @@ def test_cuda_attention_kernels_refuse_other_head_dims(cuda):
         assert (tfa.launches, tfd.launches) == before
 
 
+# x shapes: the (3, 7, 3840) case of before; 1, 16 and 2048 rows at the
+# configs' d_model (starcoder2-3b 3072, 3840, kimi-k2 7168) and at 1000
+# (16-byte rows, no power of two); 1001 (no 16-byte rows: the scalar body);
+# 40000 (too long for the register-held row: the scalar body)
+RMS_SHAPES = ([(3, 7, 3840)]
+              + [(n, d) for d in (3072, 3840, 7168, 1000)
+                 for n in (1, 16, 2048)]
+              + [(16, 1001), (2, 40000)])
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", RMS_SHAPES)
 @pytest.mark.parametrize("xdt,wdt", [(torch.bfloat16, torch.bfloat16),
                                      (torch.float32, torch.float32),
-                                     (torch.bfloat16, torch.float32)])
-def test_cuda_rms_norm_kernel_matches_plain(cuda, xdt, wdt):
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+def test_cuda_rms_norm_kernel_matches_plain(cuda, xdt, wdt, shape, offset):
+    """``offset`` 1 starts x one element past a 16-byte boundary (a
+    contiguous view into a larger buffer): the kernel's scalar body."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    x = (torch.randn((3, 7, 3840), generator=g, device=cuda) * 3).to(xdt)
-    w = (torch.randn((3840,), generator=g, device=cuda) * 0.1).to(wdt)
+    n = 1
+    for s in shape:
+        n *= s
+    buf = (torch.randn((n + offset,), generator=g, device=cuda) * 3).to(xdt)
+    x = buf[offset:].view(shape)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    w = (torch.randn((shape[-1],), generator=g, device=cuda) * 0.1).to(wdt)
     before = trn.launches
     out = ops.rms_norm(x, w, eps=1e-6)
     torch.cuda.synchronize()

@@ -243,12 +243,9 @@ def test_launch_counts_only_launches_that_return_no_error(monkeypatch):
         def rtlm_error_string(rc):
             return b"an error"
 
-    class Stream:
-        cuda_stream = 77
-
     monkeypatch.setattr(_build, "load", lambda name: Lib())
-    monkeypatch.setattr(_build.torch.cuda, "current_stream",
-                        lambda device: Stream())
+    monkeypatch.setattr(_build, "current_stream", lambda device: 77)
+    monkeypatch.setattr(_build, "_symbols", {})
     monkeypatch.setattr(tpfd, "launches", 5)
     _build.launch(tpfd, "rtlm_fake", [_build.I], 0, device="cuda")
     assert calls[-1] == (0, 77) and tpfd.launches == 6
@@ -256,3 +253,26 @@ def test_launch_counts_only_launches_that_return_no_error(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 3 \\(an error\\)"):
         _build.launch(tpfd, "rtlm_fake", [_build.I], 3, device="cuda")
     assert tpfd.launches == 6
+
+
+def test_launch_types_each_symbol_once(monkeypatch):
+    """A symbol's ctypes function is looked up and typed on its first
+    launch only; later launches reuse it (the decode loop is host-bound)."""
+    loads = []
+
+    class Symbol:
+        def __call__(self, *args):
+            return 0
+
+    class Lib:
+        rtlm_fake = Symbol()
+
+    monkeypatch.setattr(_build, "load",
+                        lambda name: loads.append(name) or Lib())
+    monkeypatch.setattr(_build, "current_stream", lambda device: 0)
+    monkeypatch.setattr(_build, "_symbols", {})
+    monkeypatch.setattr(tpfd, "launches", 0)
+    for _ in range(3):
+        _build.launch(tpfd, "rtlm_fake", [_build.I], 0, device="cuda")
+    assert loads == ["paged_decode_attention"] and tpfd.launches == 3
+    assert Lib.rtlm_fake.argtypes == [_build.I, _build.P]
