@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero:
   1. card — name and power limit (``nvidia-smi``), torch/CUDA versions,
      and the build of all six CUDA kernels from ``src/repro_torch/csrc``,
      one ``nvcc`` per source, all started together; the ``-Xptxas -v``
-     registers, spills and barriers of the three tensor-core kernels and
+     registers, spills and barriers of the five tensor-core kernels and
      RMSNorm (the attention kernels' shared memory is dynamic, sized at
      launch, so ptxas does not see it);
   2. kernels — each kernel against its plain PyTorch version on the card
@@ -18,10 +18,10 @@ Phases, in order; any failure exits non-zero:
      |plain| and its mean) and scattered pages bit-equal; median times of
      the kernel, the plain version and a library yardstick (gather + SDPA,
      SDPA or ``F.rms_norm``, timed here only), each with the L2 cache
-     flushed, beside the bound (for the three tensor-core kernels and
-     RMSNorm also the time with the host hidden, ``device_ms``, beside the
-     library call's, the rate reached and the time over the bound, and the
-     two decode kernels' split plans and grids).  Then the kernel API
+     flushed, beside the bound (for every kernel also the time with the
+     host hidden, ``device_ms``, beside the library call's, the rate
+     reached and the time over the bound; the two decode kernels' split
+     plans and the grids).  Then the kernel API
      (``kernels.ops``) as
      an entry point: every op once at those shapes, launch counts reset
      just before and read just after, outputs bit-equal to the kernels'
@@ -184,6 +184,19 @@ def ptxas_report(names) -> dict:
                      if "Compiling entry" in ln or "Used" in ln
                      or "spill" in ln]
     return out
+
+
+def prefill_grid(kmod, rows: int, KV: int, C: int) -> list:
+    """The grid a prefill kernel launches for ``rows`` t-major query rows,
+    from the CTA size its library exports (``rtlm_prefill_cta_rows``).
+    Fails if the plain tile model (``ref.PREFILL_CTA_ROWS``) has another."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import PREFILL_CTA_ROWS
+    cta = _build.load(kmod.NAME).rtlm_prefill_cta_rows()
+    if cta != PREFILL_CTA_ROWS:
+        fail(f"{kmod.NAME}: the kernel's CTA holds {cta} query rows, the "
+             f"plain tile model {PREFILL_CTA_ROWS}")
+    return [-(-rows // cta), KV, C]
 
 
 def held(what: str, out, ref, shares: dict) -> float:
@@ -375,16 +388,25 @@ def check_ragged(torch, F, kmod) -> dict:
     keys = sum(ln * cx + ln * (ln + 1) // 2 for _, cx, ln in chunks)
     flops = 4 * keys * H * D
     b_ms, b_by = bound(bytes_moved, flops)
+    run = lambda: kmod.ragged_chunked_prefill(  # noqa: E731
+        q, kn, vn, kp1, vp1, tab, mt)
+    host = time_in_turns(torch, {"kernel": run, "library": library})
+    dev = time_in_turns(torch, {"kernel": run, "library": library},
+                        hide_host=True)
+    ms, device_ms = host["kernel"], dev["kernel"]
     return {
-        "max_abs_err": err, "limit_share": shares,
-        "ms": time_ms(torch, lambda: kmod.ragged_chunked_prefill(
-            q, kn, vn, kp1, vp1, tab, mt)),
+        "max_abs_err": err, "limit_share": shares, "ms": ms,
         "plain_ms": time_ms(torch, lambda: kmod.ragged_chunked_prefill_ref(
             q, kn, vn, kp2, vp2, tab, mt)),
-        "library_ms": time_ms(torch, library),
+        "library_ms": host["library"],
         "bound_ms": b_ms, "bound_by": b_by,
+        "achieved": achieved(ms, bytes_moved, flops, b_ms),
+        "device_ms": device_ms,
+        "library_device_ms": dev["library"],
+        "device_achieved": achieved(device_ms, bytes_moved, flops, b_ms),
         "shape": {"C": C, "T_pad": T, "H": H, "KV": KV, "D": D, "bs": BS,
-                  "nb": nb, "chunks": chunks},
+                  "nb": nb, "chunks": chunks,
+                  "grid": prefill_grid(kmod, T * (H // KV), KV, C)},
         "ops": [ops_call],
     }
 
@@ -394,7 +416,8 @@ def check_chunked_prefill(torch, F, kmod) -> dict:
     T = 32 at contexts 0, 32, 64, 96) and the four contexts in one B = 4
     launch; tables of the engine's width (13 entries), so entries past
     ctx + T are padding.  ``ms``, ``plain_ms``, ``library_ms`` and
-    ``bound_ms`` are means over the four B = 1 launches."""
+    ``bound_ms`` (and the device times) are means over the four B = 1
+    launches; each launch is timed in turns with gather + SDPA."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rng = np.random.default_rng(SEED + 3)
     T, ctxs = CHUNK, (0, 32, 64, 96)
@@ -425,12 +448,26 @@ def check_chunked_prefill(torch, F, kmod) -> dict:
             q[b].transpose(1, 2), k, v, attn_mask=mask[:, None],
             enable_gqa=True)
 
-    def cost(cs):
+    def timed(b, cs):
+        """Kernel and gather + SDPA in turns, with and without the host
+        hidden, beside the plain version and the bound, for the rows
+        ``b`` at contexts ``cs``."""
         bytes_moved = (2 * len(cs) * T * H * D * 2
                        + sum(2 * (c + T) * KV * D * 2 for c in cs)
                        + len(cs) * (nb + 1) * 4)
         flops = 4 * H * D * sum(c * T + T * (T + 1) // 2 for c in cs)
-        return bound(bytes_moved, flops)
+        b_ms, b_by = bound(bytes_moved, flops)
+        fns = {"kernel": lambda: kernel(b), "library": lambda: library(b)}
+        host = time_in_turns(torch, fns)
+        dev = time_in_turns(torch, fns, hide_host=True)
+        return {"ms": host["kernel"],
+                "plain_ms": time_ms(torch, lambda: plain(b)),
+                "library_ms": host["library"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "device_ms": dev["kernel"],
+                "library_device_ms": dev["library"],
+                "device_achieved": achieved(dev["kernel"], bytes_moved,
+                                            flops, b_ms)}
 
     err, rows, shares = 0.0, [], {}
     for i in range(B):
@@ -439,28 +476,25 @@ def check_chunked_prefill(torch, F, kmod) -> dict:
         torch.cuda.synchronize()
         err = max(err, held(f"chunked prefill ctx {ctxs[i]}", out,
                             plain(b), shares))
-        b_ms, b_by = cost(ctxs[i:i + 1])
-        rows.append({"ctx": ctxs[i], "ms": time_ms(torch, lambda: kernel(b)),
-                     "plain_ms": time_ms(torch, lambda: plain(b)),
-                     "library_ms": time_ms(torch, lambda: library(b)),
-                     "bound_ms": b_ms, "bound_by": b_by})
+        rows.append({"ctx": ctxs[i], **timed(b, ctxs[i:i + 1])})
     allb = slice(0, B)
     out4 = kernel(allb)
     torch.cuda.synchronize()
     err = max(err, held("chunked prefill B=4", out4, plain(allb), shares))
-    b_ms, b_by = cost(ctxs)
     mean = lambda k: sum(r[k] for r in rows) / len(rows)  # noqa: E731
     return {
         "max_abs_err": err, "limit_share": shares,
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "library_ms": mean("library_ms"), "bound_ms": mean("bound_ms"),
-        "bound_by": rows[-1]["bound_by"], "per_context": rows,
-        "b4": {"ms": time_ms(torch, lambda: kernel(allb)),
-               "plain_ms": time_ms(torch, lambda: plain(allb)),
-               "library_ms": time_ms(torch, lambda: library(allb)),
-               "bound_ms": b_ms, "bound_by": b_by},
+        "bound_by": rows[-1]["bound_by"],
+        "device_ms": mean("device_ms"),
+        "library_device_ms": mean("library_device_ms"),
+        "device_achieved": {k: sum(r["device_achieved"][k] for r in rows)
+                            / len(rows) for k in rows[0]["device_achieved"]},
+        "per_context": rows, "b4": timed(allb, ctxs),
         "shape": {"T": T, "H": H, "KV": KV, "D": D, "bs": BS, "nb": nb,
-                  "contexts": list(ctxs)},
+                  "contexts": list(ctxs),
+                  "grid": prefill_grid(kmod, T * (H // KV), KV, 1)},
         "ops": [("chunked_prefill_attention",
                  lambda ops: ops.chunked_prefill_attention(q, kp, vp, tab,
                                                            ctx), out4)],
@@ -986,6 +1020,8 @@ def main() -> int:
     for name, lines in ptxas_report(("flash_attention",
                                      "flash_decode_attention",
                                      "paged_decode_attention",
+                                     "ragged_chunked_prefill",
+                                     "chunked_prefill_attention",
                                      "rms_norm")).items():
         for ln in lines:
             print(f"ptxas {name}: {ln}", flush=True)

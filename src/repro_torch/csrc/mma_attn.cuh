@@ -1,13 +1,14 @@
 // Shared device code of the port's tensor-core attention kernels
-// (flash_attention.cu, and the two split-K decode kernels through
-// split_decode.cuh).  _build.py hashes the
-// shared headers into every library's name, so an edit here rebuilds all
-// of them.
+// (flash_attention.cu, the two split-K decode kernels through
+// split_decode.cuh, and the two prefill kernels through
+// prefill_attn.cuh).  _build.py hashes the shared headers into every
+// library's name, so an edit here rebuilds all of them.
 //
 // Tiles live in shared memory as bf16, DP columns wide (the head dim D
 // zero-padded up to a compile-time 32, 64, 128 or 256).  Copies into them
 // are 16-byte cp.async (D must be a multiple of 8), which zero-fill the
-// pad columns [D, DP).  For the mma.sync products (split-K decode) a tile
+// pad columns [D, DP).  For the mma.sync products (split-K decode,
+// prefill) a tile
 // is row-major with a row stride of DP + 8 elements: the 16 extra bytes
 // shift each row by one 16-byte bank group, so the eight row addresses of
 // an ldmatrix hit eight different groups.  (The wgmma products of flash
@@ -132,22 +133,30 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
-// The same for a key and a value tile whose rows lie at the same offsets
-// from k_src and v_src, so off(r) is evaluated once for both.
-template <int DP, int THREADS, typename Off>
+// Where the key and value rows of one position lie; k == nullptr (the
+// default): a row that must not be read, zero-filled.
+struct KVRow {
+  const bf16* k = nullptr;
+  const bf16* v = nullptr;
+};
+
+// The same for a key and a value tile: row r from row(r) (a KVRow), so a
+// tile may gather its rows from more than one base (the fused prefill
+// takes its prefix from the pages and its chunk's own rows from the new
+// K/V).  any: a global address for the zero-filled copies, which read
+// nothing from it (source size 0).
+template <int DP, int THREADS, typename Row>
 __device__ __forceinline__ void load_kv_rows(bf16* k_dst, bf16* v_dst,
-                                             const bf16* k_src,
-                                             const bf16* v_src, int rows,
-                                             int D, Off off) {
+                                             const bf16* any, int rows,
+                                             int D, Row row) {
   constexpr int LD = DP + 8, CH = DP / 8;
 #pragma unroll 4
   for (int e = threadIdx.x; e < rows * CH; e += THREADS) {
     const int r = e / CH, c = e % CH;
-    const int64_t o = off(r);
-    const bool v = o >= 0 && c * 8 < D;
-    const int64_t at = v ? o + c * 8 : 0;
-    cp_async16(k_dst + r * LD + c * 8, k_src + at, v);
-    cp_async16(v_dst + r * LD + c * 8, v_src + at, v);
+    const KVRow src = row(r);
+    const bool v = src.k != nullptr && c * 8 < D;
+    cp_async16(k_dst + r * LD + c * 8, v ? src.k + c * 8 : any, v);
+    cp_async16(v_dst + r * LD + c * 8, v ? src.v + c * 8 : any, v);
   }
 }
 

@@ -10,144 +10,150 @@
 // and each query row t attends over the prefix positions < ctx_len plus
 // the chunk's own keys t_kv <= t, t_kv < chunk_len (float32 online
 // softmax, divided by max(l, 1e-30)).  A chunk_len == 0 padding chunk
-// writes nothing and returns zeros.
+// writes nothing and returns zeros; so does every 16-row tile of the
+// t-major rows wholly at t >= chunk_len.  D is any multiple of 8 up to 256;
+// ctx_len + chunk_len <= nb * bs, as the engine's tables guarantee.
 //
-// What bounds it on the H100: memory, at serving shapes (chunks of 32
-// tokens over prefixes of a few hundred): each page row serves
-// G * T_pad = 384 query rows, but the chunks' queries, outputs and fresh
-// K/V are most of the bytes, and the operations come to fewer than the
-// ~295 per byte moved where the tensor cores would become the limit
-// (chip_smoke's bound says "bytes").
+// What bounds it on the H100: launch latency and the chain of dependent
+// loads, at the serve's shapes (1-4 chunks of 16-32 tokens over prefixes
+// of at most 96, 24/2 heads, D 128).  The bytes (a few hundred KB) and the
+// operations (~0.1 GFLOP) would take well under a microsecond at the
+// card's rates; each page row serves the G * T_pad query rows of its
+// group, so the operations per byte moved stay below the ~295 where the
+// tensor cores would become the limit (chip_smoke's bound says "bytes").
 //
-// What the design does about it: one CTA per (query tile of R rows of the
-// T_pad * G row block, KV head, chunk), so every key/value tile loaded into
-// shared memory serves R query rows at once.  The TPU kernel's one-hot MXU
-// scatter is a direct store here: only the query-tile-0 CTA of each
-// (chunk, KV head) writes the chunk's rows, so no row is written twice.
-// The prefix phase reads only positions < ctx_len, which the scatter never
-// writes, and the in-chunk phase reads the k_new / v_new inputs rather
-// than the pages just written, so no ordering between CTAs is needed.
-// This first version computes in float32 on the CUDA cores; wgmma, TMA
-// and warp specialisation are later work.
+// What the design does about it (prefill_attn.cuh): one CTA per (row tile
+// of kCtaRows = 4 warps x 16 t-major rows, KV head, chunk), so every K/V
+// tile loaded serves 64 query rows; dead tiles and padding chunks return
+// at once.  The prefix and the chunk's own keys are one run of positions
+// walked in 64-position tiles, only as far as the tile's last live query
+// sees, through a two-stage cp.async ring: row p < ctx_len is
+// row p % bs of page tables[c, p / bs], row p >= ctx_len is row p - ctx_len
+// of k_new / v_new (read by stride, never from the pages being written, so
+// no ordering between CTAs is needed).  Both products run on the tensor
+// cores (mma.sync, P as bf16 hi + lo).  The TPU kernel's one-hot MXU
+// scatter is a direct store: token t is stored by the one CTA whose rows
+// hold row t * G, as 16-byte vectors before its attention (bit-equal to
+// the plain version's scatter of the same page-dtype rows).
 #include "attn_common.cuh"
+#include "prefill_attn.cuh"
 #include "rtlm_api.cuh"
 
 namespace {
 
-constexpr int kRowsPerTile = 64;
-constexpr int kThreads = 256;
+namespace pf = rtlm::prefill;
+using pf::bf16;
+using pf::kThreads;
 
-struct PrefixValid {
-  int base, ctx;
-  __device__ bool operator()(int, int t) const { return base + t < ctx; }
-};
-
-struct InChunkValid {
-  int row0, G, kv0, clen;
-  __device__ bool operator()(int r, int t) const {
-    const int t_q = (row0 + r) / G, t_kv = kv0 + t;
-    return t_kv <= t_q && t_kv < clen;
-  }
-};
-
-__global__ void ragged_prefill_kernel(
-    const __nv_bfloat16* __restrict__ q,      // (C, T, H, D)
-    const __nv_bfloat16* __restrict__ k_new,  // (C, T, KV, D), page dtype
-    const __nv_bfloat16* __restrict__ v_new,
-    __nv_bfloat16* __restrict__ k_pages,      // (N, bs, KV, D), in/out
-    __nv_bfloat16* __restrict__ v_pages,
-    const int* __restrict__ tables,           // (C, nb)
-    const int* __restrict__ meta,             // (C, 4)
-    __nv_bfloat16* __restrict__ out,          // (C, T, H, D)
-    int T, int H, int KV, int D, int bs, int nb, float scale) {
-  extern __shared__ float smem[];
-  const int tile = blockIdx.x, kvh = blockIdx.y, c = blockIdx.z;
+template <int DP>
+__global__ void __launch_bounds__(kThreads) ragged_prefill_kernel(
+    const bf16* __restrict__ q,      // (C, T, H, D)
+    const bf16* __restrict__ k_new,  // (C, T, KV, D), page dtype
+    const bf16* __restrict__ v_new,
+    bf16* __restrict__ k_pages,      // (N, bs, KV, D), in/out
+    bf16* __restrict__ v_pages,
+    const int* __restrict__ tables,  // (C, nb)
+    const int* __restrict__ meta,    // (C, 4)
+    bf16* __restrict__ out,          // (C, T, H, D)
+    int T, int H, int KV, int D, int bs, int nb, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int R = pf::kCtaRows;
+  const int kvh = blockIdx.y, c = blockIdx.z;
   const int G = H / KV;
-  const int rows = T * G;
-  const int row0 = tile * kRowsPerTile;
-  const int R = min(kRowsPerTile, rows - row0);
-  const int ctx = meta[c * 4 + 1];
-  const int clen = meta[c * 4 + 2];
+  const int ctx = max(meta[c * 4 + 1], 0);
+  const int clen = min(max(meta[c * 4 + 2], 0), T);
   const int* table = tables + (int64_t)c * nb;
-  const int64_t row_stride = (int64_t)KV * D;
+  const int64_t kv_stride = (int64_t)KV * D;
+  const bf16* kn = k_new + ((int64_t)c * T * KV + kvh) * D;
+  const bf16* vn = v_new + ((int64_t)c * T * KV + kvh) * D;
 
-  // ---- fused scatter (query tile 0 only): direct row stores, bit-equal
-  // to a drop-mode scatter of the same page-dtype rows
-  if (tile == 0) {
-    for (int e = threadIdx.x; e < clen * D; e += blockDim.x) {
-      const int t = e / D, d = e - t * D;
-      const int pos = ctx + t;
-      const int64_t page = table[min(pos / bs, nb - 1)];
-      const int64_t dst = ((page * bs + pos % bs) * KV + kvh) * D + d;
-      const int64_t src = (((int64_t)c * T + t) * KV + kvh) * D + d;
-      k_pages[dst] = k_new[src];
-      v_pages[dst] = v_new[src];
-    }
+  // ---- fused scatter: the tokens whose row t * G is one of this CTA's
+  const int row0 = blockIdx.x * R;
+  const int t_lo = (row0 + G - 1) / G;
+  const int t_hi = min(clen, (row0 + R + G - 1) / G);
+  const int vecs = D / 8;
+  for (int e = threadIdx.x; e < (t_hi - t_lo) * vecs; e += kThreads) {
+    const int t = t_lo + e / vecs, d = (e % vecs) * 8;
+    const int pos = ctx + t;
+    const int64_t page = table[min(pos / bs, nb - 1)];
+    const int64_t dst = (page * bs + pos % bs) * kv_stride + kvh * D + d;
+    const int64_t src = t * kv_stride + d;
+    *reinterpret_cast<uint4*>(k_pages + dst) =
+        *reinterpret_cast<const uint4*>(kn + src);
+    *reinterpret_cast<uint4*>(v_pages + dst) =
+        *reinterpret_cast<const uint4*>(vn + src);
   }
 
-  const rtlm::Smem sm = rtlm::carve(smem, kRowsPerTile, bs, D);
-  // query row r of this tile is (t_q, g) = divmod(row0 + r, G)
-  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-    const int r = e / D, d = e - r * D;
-    const int t_q = (row0 + r) / G, g = (row0 + r) - t_q * G;
-    sm.q[r * (D + 1) + d] = __bfloat162float(
-        q[(((int64_t)c * T + t_q) * H + (int64_t)kvh * G + g) * D + d]);
-  }
-  rtlm::init_state(sm, R, D);
-  __syncthreads();
+  // ---- attention: prefix positions < ctx from the pages, then the
+  // chunk's own rows from k_new / v_new
+  const int64_t qo = (int64_t)c * T * H * D;
+  const bf16* kp = k_pages + (int64_t)kvh * D;
+  const bf16* vp = v_pages + (int64_t)kvh * D;
+  pf::attend<DP>(
+      smem_raw, q + qo, out + qo, T, H, G, D, kvh, clen, scale_log2,
+      [&](int t) { return ctx + min(t, clen - 1); },
+      [&](int p) -> pf::KVRow {
+        if (p < ctx) {
+          const int64_t o =
+              ((int64_t)table[min(p / bs, nb - 1)] * bs + p % bs) *
+              kv_stride;
+          return {kp + o, vp + o};
+        }
+        const int64_t o = (int64_t)(p - ctx) * kv_stride;
+        return {kn + o, vn + o};
+      });
+}
 
-  // ---- prefix phase: pages holding positions < ctx
-  int n_pages = (ctx + bs - 1) / bs;
-  if (n_pages > nb) n_pages = nb;
-  for (int i = 0; i < n_pages; ++i) {
-    const int64_t page = table[i];
-    const int64_t off = (page * bs * KV + kvh) * D;
-    rtlm::load_kv_rows(sm, k_pages + off, v_pages + off, row_stride, bs, D);
-    __syncthreads();
-    rtlm::attend_tile(sm, R, bs, bs, D, scale, PrefixValid{i * bs, ctx});
-  }
-
-  // ---- in-chunk phase: causal against the chunk's own K/V inputs
-  for (int kv0 = 0; kv0 < clen; kv0 += bs) {
-    const int nk = min(bs, clen - kv0);
-    const int64_t off = (((int64_t)c * T + kv0) * KV + kvh) * D;
-    rtlm::load_kv_rows(sm, k_new + off, v_new + off, row_stride, nk, D);
-    __syncthreads();
-    rtlm::attend_tile(sm, R, bs, nk, D, scale,
-                      InChunkValid{row0, G, kv0, clen});
-  }
-
-  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-    const int r = e / D, d = e - r * D;
-    const int t_q = (row0 + r) / G, g = (row0 + r) - t_q * G;
-    out[(((int64_t)c * T + t_q) * H + (int64_t)kvh * G + g) * D + d] =
-        __float2bfloat16(sm.acc[e] / fmaxf(sm.l[r], 1e-30f));
-  }
+template <int DP>
+int launch(const void* q, const void* k_new, const void* v_new,
+           void* k_pages, void* v_pages, const void* tables, const void* meta,
+           void* out, int C, int T, int H, int KV, int D, int bs, int nb,
+           float scale, cudaStream_t stream) {
+  const size_t bytes = pf::smem_bytes<DP>();
+  cudaError_t err =
+      rtlm::allow_smem((const void*)ragged_prefill_kernel<DP>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(pf::row_tiles(T * (H / KV)), KV, C);
+  ragged_prefill_kernel<DP><<<grid, kThreads, bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k_new, (const bf16*)v_new,
+      (bf16*)k_pages, (bf16*)v_pages, (const int*)tables, (const int*)meta,
+      (bf16*)out, T, H, KV, D, bs, nb, scale * rtlm::mma::kLog2e);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// the t-major query rows of one CTA, the grid's unit (prefill_attn.cuh)
+int rtlm_prefill_cta_rows(void) { return pf::kCtaRows; }
+
+// D must be a multiple of 8 up to 256, and q, k_new, v_new, the pages and
+// out 16-byte aligned (the wrapper checks both).
 int rtlm_ragged_chunked_prefill(const void* q, const void* k_new,
                                 const void* v_new, void* k_pages,
                                 void* v_pages, const void* tables,
                                 const void* meta, void* out, int C, int T,
                                 int H, int KV, int D, int bs, int nb,
                                 float scale, void* stream) {
-  const int G = H / KV;
-  const int n_tiles = (T * G + kRowsPerTile - 1) / kRowsPerTile;
-  const size_t bytes = rtlm::smem_floats(kRowsPerTile, bs, D) * sizeof(float);
-  cudaError_t err =
-      rtlm::allow_smem((const void*)ragged_prefill_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_tiles, KV, C);
-  ragged_prefill_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new,
-      (const __nv_bfloat16*)v_new, (__nv_bfloat16*)k_pages,
-      (__nv_bfloat16*)v_pages, (const int*)tables, (const int*)meta,
-      (__nv_bfloat16*)out, T, H, KV, D, bs, nb, scale);
-  return (int)cudaGetLastError();
+  if (C == 0 || T == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (rtlm::mma::padded_head_dim(D)) {
+    case 32:
+      return launch<32>(q, k_new, v_new, k_pages, v_pages, tables, meta, out,
+                        C, T, H, KV, D, bs, nb, scale, st);
+    case 64:
+      return launch<64>(q, k_new, v_new, k_pages, v_pages, tables, meta, out,
+                        C, T, H, KV, D, bs, nb, scale, st);
+    case 128:
+      return launch<128>(q, k_new, v_new, k_pages, v_pages, tables, meta,
+                         out, C, T, H, KV, D, bs, nb, scale, st);
+    case 256:
+      return launch<256>(q, k_new, v_new, k_pages, v_pages, tables, meta,
+                         out, C, T, H, KV, D, bs, nb, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -93,9 +93,13 @@ __device__ __forceinline__ void attend(unsigned char* smem, const Block& blk,
 
   auto load_kv = [&](int stage, int t) {
     const int p0 = t * BN;
-    mm::load_kv_rows<DP, kThreads>(k_s + stage * BN * LD,
-                                   v_s + stage * BN * LD, kg, vg, BN, D,
-                                   [&](int r) { return row_off(p0 + r); });
+    mm::load_kv_rows<DP, kThreads>(
+        k_s + stage * BN * LD, v_s + stage * BN * LD, kg, BN, D,
+        [&](int r) -> mm::KVRow {
+          const int64_t o = row_off(p0 + r);
+          if (o < 0) return {};
+          return {kg + o, vg + o};
+        });
   };
   int cur = next_live(t_begin);
   if (cur < t_end) load_kv(0, cur);

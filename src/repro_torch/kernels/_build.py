@@ -33,8 +33,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-COMMON = ("attn_common.cuh", "mma_attn.cuh", "rtlm_api.cuh",
-          "split_decode.cuh", "wgmma.cuh")
+COMMON = ("attn_common.cuh", "mma_attn.cuh", "prefill_attn.cuh",
+          "rtlm_api.cuh", "split_decode.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -9,10 +9,15 @@ pages already hold the chunk's own K/V at logical positions
 ``transformer._attn_chunk_paged`` does); query ``t`` attends positions
 ``<= ctx_lens[b] + t``.  Online softmax in float32; nothing is written.
 
+The kernel is the fused ragged prefill's tensor-core body
+(``csrc/prefill_attn.cuh``) over pages only (``ref.chunked_prefill_tiles``
+is the plain model of its arithmetic).
+
 Dispatch: a CUDA tensor launches the kernel in
-``csrc/chunked_prefill_attention.cu`` (bf16 only) or raises; a CPU tensor
-takes the plain version (``ref.chunked_prefill_attention_ref``).
-``launches`` counts kernel launches.
+``csrc/chunked_prefill_attention.cu`` (bf16 only, head dim a multiple of 8
+up to 256, tensors on 16-byte boundaries) or raises; a CPU tensor takes
+the plain version (``ref.chunked_prefill_attention_ref``).  ``launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -48,6 +53,9 @@ def _check(q, k_pages, v_pages, block_tables, ctx_lens) -> None:
                           ("v_pages", v_pages, torch.bfloat16),
                           ("block_tables", block_tables, torch.int32),
                           ("ctx_lens", ctx_lens, torch.int32)))
+    _build.padded_head_dim(D)
+    _build.check_aligned((("q", q), ("k_pages", k_pages),
+                          ("v_pages", v_pages)))
 
 
 def chunked_prefill_attention(q, k_pages, v_pages, block_tables,

@@ -11,9 +11,18 @@ attends over the prefix positions ``< ctx_len`` plus the chunk's own rows
 ``t_kv <= t``, ``t_kv < chunk_len``.  A ``chunk_len == 0`` padding chunk
 writes nothing.  Rows ``t >= chunk_len`` of the output are padding.
 
-Dispatch: a CUDA tensor launches the kernel in ``csrc/ragged_chunked_prefill.cu``
-(bf16 only) or raises; a CPU tensor takes the plain version
-(``ref.ragged_chunked_prefill_ref``).  ``launches`` counts kernel launches.
+The kernel runs both products on the tensor cores over 16-row tiles of
+the t-major query rows and 64-position key tiles that span pages
+(``csrc/prefill_attn.cuh``); tiles wholly at ``t >= chunk_len`` and
+padding chunks return zeros (``ref.ragged_prefill_tiles`` is the plain
+model of its arithmetic, ``ref.prefill_writer_tiles`` of who stores each
+token).
+
+Dispatch: a CUDA tensor launches the kernel in
+``csrc/ragged_chunked_prefill.cu`` (bf16 only, head dim a multiple of 8 up
+to 256, tensors on 16-byte boundaries) or raises; a CPU tensor takes the
+plain version (``ref.ragged_chunked_prefill_ref``).  ``launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -56,6 +65,9 @@ def _check(q, k_new, v_new, k_pages, v_pages, block_tables, meta) -> None:
                           ("v_pages", v_pages, torch.bfloat16),
                           ("block_tables", block_tables, torch.int32),
                           ("meta", meta, torch.int32)))
+    _build.padded_head_dim(D)
+    _build.check_aligned((("q", q), ("k_new", k_new), ("v_new", v_new),
+                          ("k_pages", k_pages), ("v_pages", v_pages)))
 
 
 def ragged_chunked_prefill(q, k_new, v_new, k_pages, v_pages, block_tables,

@@ -226,6 +226,153 @@ def ragged_chunked_prefill_ref(q, k_new, v_new, k_pages, v_pages,
     return _masked_attention(q, k, v, mask)
 
 
+#: the prefill kernels' tiles (kTileKeys, kWarpRows and kCtaRows of
+#: csrc/prefill_attn.cuh, which the tests hold these to): key positions of
+#: a tile, t-major query rows of a warp tile, and of a CTA (4 warps)
+PREFILL_TILE_KEYS = 64
+PREFILL_WARP_ROWS = 16
+PREFILL_CTA_ROWS = 4 * PREFILL_WARP_ROWS
+
+
+def prefill_writer_tiles(T: int, G: int, cta_rows: int) -> torch.Tensor:
+    """Which CTA of the fused ragged prefill stores each of a chunk's T
+    tokens: the CTA of ``cta_rows`` t-major rows (row ``t * G + g``) that
+    holds row ``t * G``, found as the kernel finds it (CTA ``i`` stores
+    tokens ``ceil(i * cta_rows / G) <= t < ceil((i + 1) * cta_rows /
+    G)``).  Returns (T,) CTA indices; a token no CTA would store is -1."""
+    writer = torch.full((T,), -1, dtype=torch.long)
+    for i in range(-(-T * G // cta_rows)):
+        lo = -(-i * cta_rows // G)
+        hi = min(T, -(-(i + 1) * cta_rows // G))
+        writer[lo:hi] = i
+    return writer
+
+
+def _prefill_tiles(q, KV: int, t_live: int, last_key,
+                   kv_rows) -> torch.Tensor:
+    """One chunk of the prefill kernels' body (csrc/prefill_attn.cuh) in
+    plain float32 PyTorch.  q (T, H, D); the query rows of KV group
+    ``kvh`` in t-major order (row ``t * G + g`` is head ``kvh * G + g``
+    at token t), cut into tiles of ``PREFILL_WARP_ROWS``; query t sees
+    the positions ``p <= last_key(t)`` (a LongTensor of t in, of
+    positions out).  A tile whose first row is at ``t >= t_live`` returns
+    zeros and reads nothing.  A live tile walks the positions in tiles of
+    ``PREFILL_TILE_KEYS`` up to
+    what its last live row sees, with an online softmax; only the
+    positions up to there are read, through ``kv_rows(p) -> (k, v)``
+    ((n, KV, D) each), so nothing past them is ever indexed.  Returns
+    (T, H, D) float32."""
+    T, H, D = q.shape
+    G = H // KV
+    rows, tile = PREFILL_WARP_ROWS, PREFILL_TILE_KEYS
+    n_rows = T * G
+    live_rows = min(n_rows, t_live * G)
+    scale = 1.0 / D ** 0.5
+    qf = q.float().reshape(T, KV, G, D).transpose(0, 1).reshape(KV, n_rows,
+                                                                 D)
+    out = torch.zeros((KV, n_rows, D), dtype=torch.float32, device=q.device)
+    for r0 in range(0, live_rows, rows):
+        r1 = min(r0 + rows, n_rows)
+        lim = last_key(torch.arange(r0, r1, device=q.device) // G)  # (R,)
+        last = int(last_key(torch.tensor([(min(r1, live_rows) - 1) // G],
+                                         device=q.device))[0])
+        m = torch.full((KV, r1 - r0), float("-inf"), device=q.device)
+        l = torch.zeros((KV, r1 - r0), device=q.device)
+        acc = torch.zeros((KV, r1 - r0, D), device=q.device)
+        for p0 in range(0, last + 1, tile):
+            p = torch.arange(p0, p0 + tile, device=q.device)
+            read = p <= last
+            k = torch.zeros((tile, KV, D), device=q.device)
+            v = torch.zeros((tile, KV, D), device=q.device)
+            k[read], v[read] = (x.float() for x in kv_rows(p[read]))
+            valid = (p[None, :] <= lim[:, None])[None]           # (1, R, n)
+            s = torch.einsum("xrd,pxd->xrp", qf[:, r0:r1], k) * scale
+            s = torch.where(valid, s, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_use = torch.where(torch.isinf(m_new), 0.0, m_new)
+            w = torch.where(valid, torch.exp(s - m_use[..., None]), 0.0)
+            corr = torch.exp(m - m_use)
+            l = l * corr + w.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("xrp,pxd->xrd", w, v)
+            m = m_new
+        out[:, r0:r1] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(KV, T, G, D).transpose(0, 1).reshape(T, H, D)
+
+
+def ragged_prefill_tiles(q, k_new, v_new, k_pages, v_pages, block_tables,
+                         meta):
+    """The fused ragged prefill kernel's arithmetic in plain PyTorch (a
+    model for the tests; no caller on the card path), with the
+    arguments and the in-place page update of
+    ``ragged_chunked_prefill_ref``.  Chunk c's token t < chunk_len is
+    stored by the CTA of ``PREFILL_CTA_ROWS`` rows that
+    ``prefill_writer_tiles`` names, CTA by CTA; then ``_prefill_tiles``
+    over one run of positions: ``p < ctx_len`` is row ``p % bs`` of page
+    ``tables[c, p // bs]``, ``p >= ctx_len`` row ``p - ctx_len`` of
+    k_new / v_new (never the pages just written), and query t sees
+    ``p <= ctx_len + min(t, chunk_len - 1)``.  Tiles wholly at ``t >= chunk_len`` and padding
+    chunks return zeros.  Returns out (C, T, H, D) in q's dtype."""
+    C, T, H, D = q.shape
+    _, bs, KV, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    writer = prefill_writer_tiles(T, H // KV, PREFILL_CTA_ROWS)
+    out = torch.empty_like(q)
+    for c in range(C):
+        ctx, clen = int(meta[c, 1]), min(int(meta[c, 2]), T)
+        table = block_tables[c].long()
+        for i in range(int(writer.max()) + 1):
+            ts = (writer == i).nonzero()[:, 0]
+            ts = ts[ts < clen]
+            pos = ctx + ts
+            page = table[torch.clamp(pos // bs, max=nb - 1)]
+            k_pages[page, pos % bs] = k_new[c, ts].to(k_pages.dtype)
+            v_pages[page, pos % bs] = v_new[c, ts].to(v_pages.dtype)
+
+        def kv_rows(p, c=c, ctx=ctx, table=table):
+            pre = p < ctx
+            pp = p[pre]
+            page = table[torch.clamp(pp // bs, max=nb - 1)]
+            k = torch.empty((len(p), KV, D), dtype=k_pages.dtype)
+            v = torch.empty((len(p), KV, D), dtype=v_pages.dtype)
+            k[pre], v[pre] = k_pages[page, pp % bs], v_pages[page, pp % bs]
+            k[~pre] = k_new[c, p[~pre] - ctx].to(k.dtype)
+            v[~pre] = v_new[c, p[~pre] - ctx].to(v.dtype)
+            return k, v
+
+        out[c] = _prefill_tiles(
+            q[c], KV, clen,
+            lambda t, ctx=ctx, clen=clen: ctx + torch.clamp(t, max=clen - 1),
+            kv_rows).to(q.dtype)
+    return out
+
+
+def chunked_prefill_tiles(q, k_pages, v_pages, block_tables, ctx_lens):
+    """The single-chunk prefill kernel's arithmetic in plain PyTorch (a
+    model for the tests; no caller on the card path), with the arguments
+    of ``chunked_prefill_attention_ref``: ``_prefill_tiles`` over the
+    sequence's ``nb * bs`` positions, ``p`` being row ``p % bs`` of page
+    ``tables[b, p // bs]``, query t seeing ``p <= ctx_len + t``.  Table
+    entries past the last position the chunk's last query sees are never
+    read.  Returns (B, T, H, D) in q's dtype."""
+    B, T, H, D = q.shape
+    _, bs, KV, _ = k_pages.shape
+    n_pos = block_tables.shape[1] * bs
+    out = torch.empty_like(q)
+    for b in range(B):
+        ctx = int(ctx_lens[b])
+        table = block_tables[b].long()
+
+        def kv_rows(p, table=table):
+            page = table[p // bs]
+            return k_pages[page, p % bs], v_pages[page, p % bs]
+
+        out[b] = _prefill_tiles(
+            q[b], KV, T,
+            lambda t, ctx=ctx: torch.clamp(ctx + t, max=n_pos - 1),
+            kv_rows).to(q.dtype)
+    return out
+
+
 def rms_norm_ref(x, weight, eps: float = 1e-6):
     """x (..., D); weight (D,) -> ``x * rsqrt(mean(x^2) + eps) * (1 + w)``
     reduced and scaled in float32, cast to x's dtype (as

@@ -231,17 +231,36 @@ def test_every_config_head_dim_has_an_instance(D, padded):
     assert _build.padded_head_dim(D) == padded
 
 
-def test_every_attention_config_is_taken():
+def test_every_attention_config_is_taken(monkeypatch):
     """Every config with attention heads, at full width and as a smoke
-    config, has a head dim the tensor-core kernels take."""
+    config, has a head dim the tensor-core kernels take, and the two
+    prefill wrappers launch at it (the launch stubbed: no card here)."""
     from repro_torch import configs
     from repro_torch.kernels import _build
+    from repro_torch.kernels import chunked_prefill_attention as tcpa
+    from repro_torch.kernels import ragged_chunked_prefill as trcp
+    launched = []
+    monkeypatch.setattr(_build, "on_card", lambda x: True)
+    monkeypatch.setattr(_build, "launch",
+                        lambda module, symbol, argtypes, *args, device:
+                        launched.append(module.NAME))
     dims = set()
     for arch in configs.ARCH_IDS:
         for cfg in (configs.get_config(arch), configs.get_smoke_config(arch)):
             if getattr(cfg, "num_heads", 0) and getattr(cfg, "head_dim", 0):
                 dims.add(cfg.head_dim)
                 assert _build.padded_head_dim(cfg.head_dim) >= cfg.head_dim
+    for Dc in sorted(dims):
+        z = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
+        tab = torch.zeros((1, 1), dtype=torch.int32)
+        trcp.ragged_chunked_prefill(
+            z(1, 2, 2, Dc), z(1, 2, 1, Dc), z(1, 2, 1, Dc), z(1, 16, 1, Dc),
+            z(1, 16, 1, Dc), tab, torch.tensor([[0, 0, 2, 0]],
+                                               dtype=torch.int32))
+        tcpa.chunked_prefill_attention(z(1, 2, 2, Dc), z(1, 16, 1, Dc),
+                                       z(1, 16, 1, Dc), tab, tab[:, 0])
+    assert launched == ["ragged_chunked_prefill",
+                        "chunked_prefill_attention"] * len(dims)
     assert {32, 64, 112, 120, 128, 256} <= dims
 
 

@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import chunked_prefill_attention as tcpa  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import flash_decode_attention as tfd  # noqa: E402
@@ -79,30 +80,101 @@ def test_cuda_paged_decode_refuses_other_head_dims(cuda, D):
     assert tpfd.launches == before
 
 
+#: (ctx_len, chunk_len) of the ragged cases' chunks, in turn: a prefix not
+#: a multiple of the 64-position tile, first chunks, a one-token chunk, a
+#: long prefix, and a chunk_len == 0 padding chunk (T_pad = 32)
+RAGGED_CHUNKS = [(40, 32), (0, 7), (1, 1), (70, 29), (0, 0)]
+
+
+def _dead_rows(out_c, clen, G):
+    """The rows of one chunk's output (T, H, D) in 16-row t-major tiles
+    wholly at t >= clen, per KV group: they must be zeros."""
+    T, H, D = out_c.shape
+    rows = out_c.reshape(T, H // G, G, D).transpose(0, 1).reshape(
+        H // G, T * G, D)
+    return rows[:, -(-clen * G // 16) * 16:]
+
+
+def _trash_past(tab, last_pos, bs):
+    """A copy of table row(s) whose entries past the page of position
+    ``last_pos`` are page ids far outside the pool: a kernel that read
+    one would fault."""
+    t = tab.clone()
+    t[last_pos // bs + 1:] = 1 << 30
+    return t
+
+
+#: (layout, bs, D, H, KV, C): "original" is the first version's case
+#: (seed 1, arange tables, three chunks of which the last pads), "cycled"
+#: the chunks of ``RAGGED_CHUNKS`` in turn
+RAGGED_CASES = [("original", 16, 128, 24, 2, 3)] + [
+    ("cycled", bs, D, H, KV, C) for bs in (16, 48)
+    for D in (64, 112, 120, 128, 256) for H, KV in ((24, 2), (4, 4))
+    for C in (3, 16)]
+
+
 @pytest.mark.cuda
-def test_cuda_ragged_prefill_kernel_matches_plain(cuda):
-    C, T, H, KV, D, bs, nb = 3, 32, 24, 2, 128, 16, 8
+@pytest.mark.parametrize("layout,bs,D,H,KV,C", RAGGED_CASES)
+def test_cuda_ragged_prefill_kernel_matches_plain(cuda, layout, bs, D, H,
+                                                  KV, C):
+    """The original case, then chunks cycling through ``RAGGED_CHUNKS``
+    (C = 16 holds three padding chunks, whose tables are all the trash
+    page), each real chunk's table entries past its last position trashed
+    for the kernel (the plain version reads every entry, so it gets the
+    valid ones).  Pages bit-equal to the plain version's, the trash page
+    untouched, live rows within the compare limit, dead tiles' rows
+    zero."""
+    T = 32
+    G = H // KV
+    if layout == "original":
+        nb = 8
+        seed = 1
+    else:
+        chunks = [RAGGED_CHUNKS[c % len(RAGGED_CHUNKS)] for c in range(C)]
+        nb = -(-(70 + 32) // bs) + 1
+        seed = bs * 1000 + D + G + C
     N = C * nb + 1
-    g = torch.Generator(device=cuda).manual_seed(1)
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn((C, T, H, D), generator=g, device=cuda).bfloat16()
     kn = torch.randn((C, T, KV, D), generator=g, device=cuda).bfloat16()
     vn = torch.randn((C, T, KV, D), generator=g, device=cuda).bfloat16()
     kp = torch.randn((N, bs, KV, D), generator=g, device=cuda).bfloat16()
     vp = torch.randn((N, bs, KV, D), generator=g, device=cuda).bfloat16()
-    tab = torch.arange(C * nb, device=cuda, dtype=torch.int32).view(C, nb)
-    tab[2] = N - 1
-    meta = torch.tensor([[0, 40, 32, 0], [1, 0, 7, 32], [3, 0, 0, 39]],
-                        dtype=torch.int32, device=cuda)
+    if layout == "original":
+        tab = torch.arange(C * nb, device=cuda, dtype=torch.int32).view(C,
+                                                                        nb)
+        tab[2] = N - 1
+        kern_tab = tab
+        meta = torch.tensor([[0, 40, 32, 0], [1, 0, 7, 32], [3, 0, 0, 39]],
+                            dtype=torch.int32, device=cuda)
+        chunks = [(40, 32), (0, 7), (0, 0)]
+    else:
+        tab = torch.randperm(N - 1, generator=g, device=cuda)[:C * nb].view(
+            C, nb).int()
+        kern_tab = tab.clone()
+        meta = torch.zeros((C, 4), dtype=torch.int32, device=cuda)
+        off = 0
+        for c, (ctx, ln) in enumerate(chunks):
+            meta[c] = torch.tensor([c, ctx, ln, off])
+            off += ln
+            if ln == 0:
+                tab[c] = N - 1
+                kern_tab[c] = N - 1
+            else:
+                kern_tab[c] = _trash_past(tab[c], ctx + ln - 1, bs)
     k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
     before = trcp.launches
-    out = trcp.ragged_chunked_prefill(q, kn, vn, k1, v1, tab, meta)
+    out = trcp.ragged_chunked_prefill(q, kn, vn, k1, v1, kern_tab, meta)
     torch.cuda.synchronize()
     assert trcp.launches == before + 1
     want = trcp.ragged_chunked_prefill_ref(q, kn, vn, k2, v2, tab, meta)
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
     assert torch.equal(k1[N - 1], kp[N - 1])
-    for c, ln in enumerate((32, 7)):
-        assert within(out[c, :ln], want[c, :ln])
+    assert torch.isfinite(out.float()).all()
+    for c, (_, ln) in enumerate(chunks):
+        if ln:
+            assert within(out[c, :ln], want[c, :ln])
+        assert not _dead_rows(out[c], ln, G).any()
 
 
 @pytest.mark.cuda
@@ -146,25 +218,75 @@ def test_cuda_model_decode_goes_through_the_kernel(cuda):
     assert float((logits[True] - logits[False]).abs().max()) <= 0.05 * scale
 
 
+#: (layout, bs, D, H, KV, T): "original" is the first version's case
+#: (seed 2, 5-entry tables, contexts 0, 5, 16, 33), "wide" five contexts
+#: up to 70 with tables trashed past each one's last position
+CHUNKED_CASES = [("original", 16, 128, 24, 2, 9)] + [
+    ("wide", bs, D, H, KV, T) for bs in (16, 48)
+    for D in (64, 112, 120, 128, 256) for H, KV in ((24, 2), (4, 4))
+    for T in (9, 32)]
+
+
 @pytest.mark.cuda
-def test_cuda_chunked_prefill_kernel_matches_plain(cuda):
-    """Four sequences at contexts 0, 5, 16, 33 (T = 9, not a multiple of
-    the block), tables with padding entries past ctx + T."""
-    B, T, H, KV, D, bs, nb = 4, 9, 24, 2, 128, 16, 5
+@pytest.mark.parametrize("layout,bs,D,H,KV,T", CHUNKED_CASES)
+def test_cuda_chunked_prefill_kernel_matches_plain(cuda, layout, bs, D, H,
+                                                   KV, T):
+    """Sequences at contexts 0, 5, 16 (a chunk starting on a page
+    boundary at bs 16), 33 and 70 (not multiples of the block or the
+    64-position tile; T = 9 is not a multiple of the 16-row tile), through
+    ``ops``; in the wide cases each table's entries past its last position
+    are trashed for the kernel (the plain version reads every entry)."""
+    if layout == "original":
+        ctxs, nb, seed = (0, 5, 16, 33), 5, 2
+    else:
+        ctxs = (0, 5, 16, 33, 70)
+        nb = -(-(70 + T) // bs) + 1
+        seed = bs * 1000 + D + H + T
+    B = len(ctxs)
     N = B * nb + 1
-    g = torch.Generator(device=cuda).manual_seed(2)
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn((B, T, H, D), generator=g, device=cuda).bfloat16()
     kp = torch.randn((N, bs, KV, D), generator=g, device=cuda).bfloat16()
     vp = torch.randn((N, bs, KV, D), generator=g, device=cuda).bfloat16()
     tab = torch.randperm(N, generator=g, device=cuda)[:B * nb].view(
         B, nb).int()
-    ctx = torch.tensor([0, 5, 16, 33], dtype=torch.int32, device=cuda)
+    kern_tab = tab if layout == "original" else torch.stack(
+        [_trash_past(tab[b], c + T - 1, bs) for b, c in enumerate(ctxs)])
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device=cuda)
     before = tcpa.launches
-    out = ops.chunked_prefill_attention(q, kp, vp, tab, ctx)
+    out = ops.chunked_prefill_attention(q, kp, vp, kern_tab, ctx)
     torch.cuda.synchronize()
     assert tcpa.launches == before + 1
+    assert torch.isfinite(out.float()).all()
     assert within(out, ref.chunked_prefill_attention_ref(q, kp, vp, tab,
                                                           ctx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kmod", [trcp, tcpa])
+def test_cuda_prefill_kernels_have_the_tile_models_cta(cuda, kmod):
+    """The CTA size each prefill library was built with is the plain tile
+    model's (``ref.ragged_prefill_tiles`` stores tokens by it)."""
+    assert (_build.load(kmod.NAME).rtlm_prefill_cta_rows()
+            == ref.PREFILL_CTA_ROWS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [100, 264])
+def test_cuda_prefill_kernels_refuse_other_head_dims(cuda, D):
+    """A head dim the prefill kernels are not built for raises before any
+    launch."""
+    q = torch.zeros((1, 4, 4, D), device=cuda, dtype=torch.bfloat16)
+    kn = torch.zeros((1, 4, 2, D), device=cuda, dtype=torch.bfloat16)
+    pages = torch.zeros((3, 16, 2, D), device=cuda, dtype=torch.bfloat16)
+    tab = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    meta = torch.tensor([[0, 0, 4, 0]], dtype=torch.int32, device=cuda)
+    before = (trcp.launches, tcpa.launches)
+    with pytest.raises(ValueError, match="head dim"):
+        trcp.ragged_chunked_prefill(q, kn, kn, pages, pages, tab, meta)
+    with pytest.raises(ValueError, match="head dim"):
+        tcpa.chunked_prefill_attention(q, pages, pages, tab, meta[:, 1])
+    assert (trcp.launches, tcpa.launches) == before
 
 
 @pytest.mark.cuda
