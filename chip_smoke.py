@@ -39,7 +39,22 @@ Phases, in order; any failure exits non-zero:
      requests at full width; the kernels' launch counts are reset just
      before and read just after.  The same serve runs once more under
      ``torch.profiler`` for the device's busy time and the kernels' share
-     (the paged decode's split and combine kernels, the fused prefill).
+     (the paged decode's split and combine kernels, the fused prefill);
+  5. engine rows — the other valid rows of the configuration matrix at
+     full width, each serving the same 16 requests whose 128-word prompts
+     share their first 96 words (six 16-token blocks): ``mode="batch"``,
+     continuous stall admission on the contiguous and on the paged cache,
+     paged stall with ``prefix_cache=True``, and paged chunked with the
+     prefix cache persistent across two serves.  Per serve: wall time,
+     tokens/s, TTFT and ITL, iterations, the kernels' launches (counts
+     reset just before, read just after), prefix hits and copies-on-write,
+     and the free blocks after; each one-serve row once more under
+     ``torch.profiler`` (device busy time, idle share).  It fails unless
+     every request is done with its cap, no block leaked, the prefix rows
+     hit (the second persistent serve more than the first), every paged
+     row launched the paged decode and the prefix rows the fused prefill.
+     The share of requests with identical tokens across rows is printed,
+     not held (the kernel path is held to its plain path by tolerance).
 
 Then one JSON line of kernel results (each kernel's launches from the path
 that runs it: decode and ragged prefill from phase 4, chunked prefill from
@@ -911,10 +926,11 @@ def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def run_engine(torch, cfg, params, kmods) -> dict:
+def serving_inputs() -> dict:
+    """The persona, the m_theta trained on the card (5 epochs) and the
+    test corpus that phases 4 and 5 serve."""
     from repro_torch.core import datagen, personas
     from repro_torch.core import scheduler as sched
-    from repro_torch.serving.engine import Request, ServingEngine
     persona = dataclasses.replace(personas.get_persona("bart"),
                                   batch_size=NUM_SLOTS)
     corpus = datagen.generate_corpus(datagen.VARIANCE_MIXES["normal"], 512,
@@ -923,8 +939,16 @@ def run_engine(torch, cfg, params, kmods) -> dict:
     t0 = time.perf_counter()
     profile = sched.offline_profile(train, persona, epochs=5, seed=SEED,
                                     device="cuda")
-    profile_s = time.perf_counter() - t0
-    tasks = test[:N_REQUESTS]
+    return {"persona": persona, "profile": profile, "test": test,
+            "profile_s": time.perf_counter() - t0}
+
+
+def run_engine(torch, cfg, params, kmods, inputs) -> dict:
+    from repro_torch.core import scheduler as sched
+    from repro_torch.serving.engine import Request, ServingEngine
+    persona, profile = inputs["persona"], inputs["profile"]
+    profile_s = inputs["profile_s"]
+    tasks = inputs["test"][:N_REQUESTS]
 
     def serve():
         policy = sched.POLICIES["rt-lm"](persona, profile.policy_config())
@@ -993,6 +1017,171 @@ def run_engine(torch, cfg, params, kmods) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the engine's other rows
+# ---------------------------------------------------------------------------
+
+N_ROW_REQUESTS = 16
+PROMPT_WORDS = INPUT_BUCKET      # one word is one token: no left padding
+SHARED_WORDS = 96                # six shared 16-token blocks
+
+# the rows of the configuration matrix (docs/ARCHITECTURE.md) beside
+# phase 4's continuous / paged / chunked one; the last is served twice
+ENGINE_ROWS = (
+    ("batch", dict(mode="batch", kv="contiguous", prefill="stall")),
+    ("contiguous-stall", dict(mode="continuous", kv="contiguous",
+                              prefill="stall", decode_steps=DECODE_STEPS)),
+    ("paged-stall", dict(mode="continuous", kv="paged", prefill="stall",
+                         decode_steps=DECODE_STEPS)),
+    ("paged-stall-prefix", dict(mode="continuous", kv="paged",
+                                prefill="stall", decode_steps=DECODE_STEPS,
+                                prefix_cache=True)),
+    ("paged-chunked-prefix-persist", dict(
+        mode="continuous", kv="paged", prefill="chunked", chunk_size=CHUNK,
+        decode_steps=DECODE_STEPS, prefix_cache=True,
+        persist_prefix_cache=True)),
+)
+
+
+def prefix_workload(test) -> list:
+    """N_ROW_REQUESTS texts of exactly PROMPT_WORDS words: the first
+    SHARED_WORDS (a system prompt) common to all, the rest the request's
+    own corpus text repeated; output caps from the corpus."""
+    words = [w for t in test for w in t.text.split()]
+    shared = words[:SHARED_WORDS]
+    out = []
+    for i, t in enumerate(test[:N_ROW_REQUESTS]):
+        own = t.text.split()
+        tail = own * (PROMPT_WORDS // len(own) + 1)
+        out.append((" ".join(shared + tail[:PROMPT_WORDS - SHARED_WORDS]),
+                    t.out_lens["bart"]))
+    return out
+
+
+def run_engine_rows(torch, cfg, params, kmods, inputs) -> dict:
+    """Each row of ENGINE_ROWS serves the same 16 shared-prefix requests
+    at full width (the persistent row twice, on one engine), its kernels'
+    launch counts reset just before each serve and read just after.  A
+    one-serve row then serves once more, on a fresh engine, under the
+    profiler (device busy time and idle share)."""
+    from repro_torch.core import scheduler as sched
+    from repro_torch.serving.engine import Request, ServingEngine
+    persona, profile = inputs["persona"], inputs["profile"]
+    work = prefix_workload(inputs["test"])
+    caps = [max(1, min(c, MAX_NEW)) for _, c in work]
+    rows, tokens = {}, {}
+
+    def engine(kw):
+        policy = sched.POLICIES["rt-lm"](persona, profile.policy_config())
+        return ServingEngine(
+            params, cfg, policy, profile, num_slots=NUM_SLOTS,
+            kv_block_size=BS, input_bucket=INPUT_BUCKET,
+            max_new_tokens=MAX_NEW, eos_id=-1, device="cuda", **kw)
+
+    def serve(eng):
+        return eng.serve([Request(text=text, arrival=0.0, task_id=i,
+                                  max_new_tokens=c)
+                          for i, (text, c) in enumerate(work)])
+
+    for name, kw in ENGINE_ROWS:
+        eng = engine(kw)
+        serves = 2 if kw.get("persist_prefix_cache") else 1
+        for k in range(serves):
+            label = name if serves == 1 else f"{name}-{k + 1}"
+            for m in kmods:
+                m.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = serve(eng)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {m.NAME: m.launches for m in kmods}
+            rows[label] = row = engine_row(cfg, eng, res, caps, wall,
+                                           launches, label)
+            tokens[label] = {t.task.task_id: t.task.out_tokens
+                             for t in res["tasks"]}
+            if serves == 1:
+                row["serve_profile"] = profile_window(
+                    torch, lambda: serve(engine(kw)), warm=False, cpu=False)
+            print(f"engine row {label}: {json.dumps(row)}", flush=True)
+        if eng.prefix_cache is not None:
+            eng.prefix_cache.clear()
+        if eng.allocator is not None:
+            eng.allocator.check_no_leaks()
+
+    def same(a, b):
+        return sum(tokens[a][i] == tokens[b][i]
+                   for i in range(len(work))) / len(work)
+
+    # a chunked serve admits all 16 requests before any prefill lands, so
+    # the persistent row's first serve may find its cache empty
+    hits = [rows[f"{ENGINE_ROWS[-1][0]}-{k}"]["prefix_hit_blocks"]
+            for k in (1, 2)]
+    if rows["paged-stall-prefix"]["prefix_hit_blocks"] <= 0 or hits[1] <= 0:
+        fail("engine rows: a prefix row found no prefix hit")
+    if not hits[1] > hits[0]:
+        fail(f"engine rows: the persistent cache's second serve hit "
+             f"{hits[1]} blocks, its first {hits[0]}")
+    return {"rows": rows, "token_identity": {
+        "paged_vs_contiguous_stall": same("paged-stall", "contiguous-stall"),
+        "prefix_on_vs_off_stall": same("paged-stall-prefix", "paged-stall"),
+        "batch_vs_contiguous_stall": same("batch", "contiguous-stall")}}
+
+
+def engine_row(cfg, eng, res, caps, wall, launches, label) -> dict:
+    """One serve's numbers and checks: every request done with its cap,
+    ids in the vocabulary, the pool back to its free blocks but the prefix
+    cache's pinned ones, the paged decode kernel on every paged row and
+    the fused prefill on the prefix rows."""
+    if len(res["tasks"]) != len(caps):
+        fail(f"engine row {label}: {len(res['tasks'])} of {len(caps)} "
+             "requests done")
+    gen = 0
+    for t in res["tasks"]:
+        r = t.task
+        if r.out_len != caps[r.task_id] or len(r.out_tokens) != r.out_len:
+            fail(f"engine row {label}: request {r.task_id} produced "
+                 f"{r.out_len} tokens, expected {caps[r.task_id]}")
+        if not all(0 <= x < cfg.vocab_size for x in r.out_tokens):
+            fail(f"engine row {label}: an id outside the vocabulary")
+        gen += r.out_len
+    pc = eng.prefix_cache
+    free = eng.allocator.num_free if eng.allocator is not None else None
+    if eng.kv == "paged":
+        pinned = pc.num_cached_blocks if pc is not None else 0
+        if free + pinned != eng.kv_num_blocks:
+            fail(f"engine row {label}: {free} free + {pinned} cached of "
+                 f"{eng.kv_num_blocks} blocks: a block leaked")
+        if launches["paged_decode_attention"] <= 0:
+            fail(f"engine row {label}: the paged decode kernel was never "
+                 "launched")
+    if pc is not None and launches["ragged_chunked_prefill"] <= 0:
+        fail(f"engine row {label}: the fused prefill kernel was never "
+             "launched")
+    if eng.mode == "batch":
+        iterations = len(res["prefill_dispatch_trace"])      # batches
+    elif eng.prefill == "stall":
+        iterations = len(res["decode_dispatch_trace"])      # windows
+    else:
+        iterations = len(res["budget_trace"])
+    return {
+        "wall_s": wall, "generated_tokens": gen,
+        "generated_tokens_per_s": gen / wall,
+        "ttft_p50_s": res["ttft_p50"], "ttft_p99_s": res["ttft_p99"],
+        "itl_p50_s": res["itl_p50"], "itl_p99_s": res["itl_p99"],
+        "iterations": iterations,
+        "prefill_dispatches": res["prefill_dispatches"],
+        "decode_dispatches": res["decode_dispatches"],
+        "launches": launches,
+        "prefix_hit_blocks": pc.hit_blocks if pc is not None else 0,
+        "cow_copies": res["cow_copies"],
+        "free_blocks_after": free,
+        "rejected_for_memory": res["rejected_for_memory"],
+        "peak_concurrency": res["peak_concurrency"],
+        "prefill_stall_s": res["prefill_stall_s"],
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1056,8 +1245,14 @@ def main() -> int:
 
     # -- phase 4: engine
     # the engine's main path runs the decode and fused prefill kernels
-    eres = run_engine(torch, cfg, params, KERNELS[:2])
+    inputs = serving_inputs()
+    eres = run_engine(torch, cfg, params, KERNELS[:2], inputs)
     print(f"engine [{card}]: {json.dumps(eres)}", flush=True)
+
+    # -- phase 5: the engine's other rows
+    rres = run_engine_rows(torch, cfg, params, KERNELS[:2], inputs)
+    print(f"engine rows [{card}]: token identity "
+          f"{json.dumps(rres['token_identity'])}", flush=True)
 
     # each kernel's launches on the path that runs it
     path_launches = {

@@ -6,11 +6,13 @@ is the counterpart of ``repro.models.transformer``, and so on.  It imports
 (configs, RULEGEN, priorities, the chunk scheduler, the block allocator) are
 kept here as copies, pinned to the reference by ``tests/test_torch_*.py``.
 
-What is ported is the real-time serving path: ``ServingEngine(mode=
-"continuous", kv="paged", prefill="chunked", decode_steps=N)`` on a dense
-full-attention transformer, driven by the RT-LM policy, with its bulk lane.
-Its two attention kernels are hand-written CUDA for Hopper
-(``csrc/*.cu``); see ``repro_torch.kernels``.
+What is ported is the serving engine on dense full-attention transformers:
+every valid row of the reference's configuration matrix (batch mode;
+continuous stall admission on the contiguous or paged cache; continuous
+chunked prefill on the paged cache; the prefix cache), driven by any
+policy, with the bulk lane.  The paged rows' two attention kernels are
+hand-written CUDA for Hopper (``csrc/*.cu``), like the four other kernels
+of the reference; see ``repro_torch.kernels``.
 
 Unlike the functional JAX package, the port updates state in place: page
 pools, per-slot positions and ring caches are mutated by the model functions

@@ -90,6 +90,26 @@ def scatter_packed(pages: torch.Tensor, seq: torch.Tensor,
     _flat(pages)[flat_idx[valid]] = seq[valid].to(pages.dtype)
 
 
+def copy_block(pages: torch.Tensor, src, dst) -> None:
+    """Copy one physical page in place: ``pages[dst] = pages[src]`` (the
+    prefix cache's copy-on-write of a fully matched prompt's last
+    block)."""
+    pages[int(dst)] = pages[int(src)]
+
+
+def scatter_prefill(pages: torch.Tensor, seq: torch.Tensor,
+                    table_row: torch.Tensor, seq_len: int) -> None:
+    """Write a freshly prefilled sequence into its table's blocks, in place.
+
+    seq (S, *feat) with S >= seq_len (the prefill ring's leading rows;
+    only the first ``seq_len`` are written); table_row (nb,) backs
+    positions ``0 .. seq_len - 1``."""
+    bs = pages.shape[1]
+    pos = torch.arange(seq_len, device=seq.device)
+    blk = table_row.long()[pos // bs]
+    _flat(pages)[blk * bs + pos % bs] = seq[:seq_len].to(pages.dtype)
+
+
 # ---------------------------------------------------------------------------
 # container
 # ---------------------------------------------------------------------------
@@ -142,3 +162,13 @@ class PagedKVCache:
 
     def tables_device(self) -> torch.Tensor:
         return torch.from_numpy(self.tables.copy()).to(self.device)
+
+    def table_row(self, slot: int) -> torch.Tensor:
+        return torch.from_numpy(self.tables[slot].copy()).to(self.device)
+
+
+def default_num_blocks(num_slots: int, max_len: int,
+                       block_size: int) -> int:
+    """Block count matching a contiguous ``(num_slots, max_len)`` slot
+    cache's KV-token budget (the equal-budget comparison)."""
+    return max(1, num_slots * max_len // block_size)

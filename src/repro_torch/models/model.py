@@ -2,15 +2,20 @@
 serving subset:
 
   * ``init_params(cfg, generator, device)``           parameter dict
-  * ``prefill`` / ``decode_step``                     bulk lane (ring cache)
+  * ``prefill`` / ``decode_step``                     ring cache (batch mode,
+                                                      bulk lane, per-slot)
+  * ``decode_steps``                                  per-slot decode windows
+  * ``prefill_into_slot``                             stall admission, ring
+  * ``prefill_into_paged``                            stall admission, pages
   * ``decode_step_paged`` / ``decode_steps_paged``    paged decode windows
   * ``prefill_chunks``                                fused ragged prefill
   * ``prefill_chunk``                                 one chunk of one prompt
 
 Caches are updated IN PLACE (the reference returns new caches); each
-function returns only its outputs.  ``decode_steps_paged`` replaces the
-reference's ``lax.scan`` with a Python loop whose tokens stay on the
-device, so a window costs no host round trip.
+function returns only its outputs.  ``decode_steps`` and
+``decode_steps_paged`` replace the reference's ``lax.scan`` with a Python
+loop whose tokens stay on the device, so a window costs no host round
+trip.
 """
 
 from __future__ import annotations
@@ -65,9 +70,11 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, max_len: int,
 
 @torch.no_grad()
 def decode_step(params: dict, cfg, cache: dict, token: torch.Tensor):
-    """One greedy step for the whole batch at the cache's shared position.
-    token (B, 1) i32.  Updates ``cache`` in place; returns
-    (next_token (B, 1) i32, logits (B, V) f32)."""
+    """One greedy step of every row: at the batch's shared position
+    (``init_cache``: scalar ``pos``) or at each row's own
+    (``transformer.init_slot_cache``: ``pos`` (B,)).  token (B, 1) i32.
+    Updates ``cache`` in place; returns (next_token (B, 1) i32, logits
+    (B, V) f32)."""
     x = layers.embed(params["embed"], token, cfg)
     ctx = {"pos": cache["pos"], "slot_pos": cache["slot_pos"]}
     x = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
@@ -76,6 +83,44 @@ def decode_step(params: dict, cfg, cache: dict, token: torch.Tensor):
     next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     cache["pos"] += 1
     return next_token, logits
+
+
+@torch.no_grad()
+def decode_steps(params: dict, cfg, cache: dict, token: torch.Tensor, *,
+                 num_steps: int) -> torch.Tensor:
+    """``num_steps`` greedy ``decode_step`` calls (the per-slot engine's
+    decode window).  Returns the window's tokens (B, num_steps) i32 on the
+    device; column j is step j's output."""
+    toks = []
+    for _ in range(num_steps):
+        token, _ = decode_step(params, cfg, cache, token)
+        toks.append(token[:, 0])
+    return torch.stack(toks, dim=1)
+
+
+@torch.no_grad()
+def prefill_into_slot(params: dict, cfg, cache: dict, tokens: torch.Tensor,
+                      slot: int, max_len: int,
+                      cache_dtype=torch.bfloat16) -> torch.Tensor:
+    """Prefill ONE (1, S) prompt and write its ring into row ``slot`` of a
+    per-slot cache (``transformer.init_slot_cache`` with the same
+    ``max_len``), replacing the evicted row, in place.  Returns
+    last_logits (V,) f32."""
+    one, last_logits = prefill(params, cfg, tokens, max_len, cache_dtype)
+    transformer.write_slot(cache, one, slot)
+    return last_logits[0]
+
+
+@torch.no_grad()
+def prefill_into_paged(params: dict, cfg, cache: dict, tokens: torch.Tensor,
+                       slot: int, table_row: torch.Tensor, max_len: int,
+                       cache_dtype=torch.bfloat16) -> torch.Tensor:
+    """Prefill ONE (1, S) prompt and scatter its K/V into the pages of
+    ``table_row`` (nb,), setting ``pos[slot] = S``, in place.  Returns
+    last_logits (V,) f32."""
+    one, last_logits = prefill(params, cfg, tokens, max_len, cache_dtype)
+    transformer.write_paged(cache, one, slot, table_row, tokens.shape[1])
+    return last_logits[0]
 
 
 # ---------------------------------------------------------------------------

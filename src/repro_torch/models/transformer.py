@@ -4,11 +4,16 @@ Only the dense kinds the serving path needs are ported.  A list of
 per-layer parameter dicts replaces the reference's ``scan0`` stacking, and
 caches hold one entry per layer:
 
-  * the contiguous ring cache of the bulk lane (``init_cache``):
-    ``{"layers": [{"k", "v"}], "pos": scalar, "slot_pos": (W,)}``;
-  * the paged cache of the continuous engine (``init_paged_cache``):
-    ``{"layers": [{"k", "v"}], "pos": (num_slots,)}`` with page pools of
-    shape ``(num_blocks, block_size, KV, D)``.
+  * the contiguous ring cache of batch mode and the bulk lane
+    (``init_cache``): ``{"layers": [{"k", "v"}], "pos": scalar,
+    "slot_pos": (W,)}``;
+  * the per-slot ring cache of the contiguous continuous engine
+    (``init_slot_cache``): the same layers with ``pos`` (C,) and
+    ``slot_pos`` (C, W), one independent sequence a row;
+  * the paged cache of the paged continuous engine
+    (``init_paged_cache``): ``{"layers": [{"k", "v"}], "pos":
+    (num_slots,)}`` with page pools of shape ``(num_blocks, block_size,
+    KV, D)``.
 
 Both caches are updated IN PLACE by the functions below (the reference
 returns new pytrees).  The paged attention layers (decode, the fused
@@ -116,11 +121,42 @@ def prefill_write_kv(cache_k, cache_v, k, v) -> None:
 
 
 def decode_write_kv(cache_k, cache_v, k, v, pos) -> None:
-    """Write one token (B, 1, KV, D) at ring slot ``pos % W`` in place
-    (``pos`` is the batch's shared scalar position)."""
+    """Write one token (B, 1, KV, D) at ring slot ``pos % W`` in place.
+    ``pos`` is the batch's shared scalar position, or (B,) per-slot
+    positions, each row then writing at its own ring slot."""
     idx = pos.long() % cache_k.shape[1]
+    if idx.ndim:
+        rows = torch.arange(cache_k.shape[0], device=idx.device)
+        cache_k[rows, idx] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, idx] = v[:, 0].to(cache_v.dtype)
+        return
     cache_k[:, idx] = k[:, 0].to(cache_k.dtype)
     cache_v[:, idx] = v[:, 0].to(cache_v.dtype)
+
+
+def init_slot_cache(cfg, num_slots: int, max_len: int,
+                    dtype=torch.bfloat16, device=None) -> dict:
+    """A ring cache whose ``pos`` (C,) and ``slot_pos`` (C, W) are kept
+    per slot, so each row runs an independent sequence (the contiguous
+    continuous engine).  ``device=None`` means the card."""
+    cache = init_cache(cfg, num_slots, max_len, dtype, device)
+    dev = cache["pos"].device
+    cache["pos"] = torch.zeros((num_slots,), dtype=torch.int32, device=dev)
+    cache["slot_pos"] = cache["slot_pos"][None].repeat(num_slots, 1)
+    return cache
+
+
+def write_slot(cache: dict, one: dict, slot: int) -> None:
+    """Write a freshly prefilled single-sequence ring cache (batch 1,
+    scalar ``pos``, (W,) ``slot_pos``: what ``model.prefill`` returns for
+    a (1, S) prompt) into row ``slot`` of a per-slot cache, in place.
+    Every K/V row and the ``slot_pos`` row of the slot are replaced, so
+    nothing of an evicted sequence survives."""
+    for lc, lo in zip(cache["layers"], one["layers"]):
+        lc["k"][slot] = lo["k"][0].to(lc["k"].dtype)
+        lc["v"][slot] = lo["v"][0].to(lc["v"].dtype)
+    cache["pos"][slot] = one["pos"].to(cache["pos"].dtype)
+    cache["slot_pos"][slot] = one["slot_pos"]
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +193,25 @@ def init_paged_cache(cfg, num_slots: int, num_blocks: int, block_size: int,
                                device=device)}
 
 
+def write_paged(cache: dict, one: dict, slot: int, table_row: torch.Tensor,
+                seq_len: int) -> None:
+    """Scatter a freshly prefilled single-sequence ring cache (batch 1,
+    positions 0..S-1 at rows 0..S-1) into the page pools at the blocks
+    of ``table_row`` (nb,) and set ``pos[slot] = seq_len``, in place."""
+    for lc, lo in zip(cache["layers"], one["layers"]):
+        paged_lib.scatter_prefill(lc["k"], lo["k"][0], table_row, seq_len)
+        paged_lib.scatter_prefill(lc["v"], lo["v"][0], table_row, seq_len)
+    cache["pos"][slot] = seq_len
+
+
+def copy_paged_block(cache: dict, src, dst) -> None:
+    """Copy-on-write page copy: physical block ``src`` into ``dst`` in
+    every layer's K/V pools, in place."""
+    for lc in cache["layers"]:
+        paged_lib.copy_block(lc["k"], src, dst)
+        paged_lib.copy_block(lc["v"], src, dst)
+
+
 # ---------------------------------------------------------------------------
 # attention layers
 # ---------------------------------------------------------------------------
@@ -172,15 +227,20 @@ def _attn_seq(p, x, positions, cfg):
 
 
 def _attn_decode(p, x, cache_k, cache_v, pos, slot_pos, cfg):
-    """One-token self attention against the ring cache (batch form:
-    scalar ``pos``, (W,) ``slot_pos``); writes K/V and ``slot_pos`` in
-    place."""
+    """One-token self attention against the ring cache: scalar ``pos``
+    with (W,) ``slot_pos`` (batch mode), or (B,) ``pos`` with (B, W)
+    ``slot_pos`` (per-slot, every row its own sequence); writes K/V and
+    ``slot_pos`` in place."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = layers.attention_qkv(p["attn"], h, pos[..., None],
                                    cfg.rope_theta)
     decode_write_kv(cache_k, cache_v, k, v, pos)
     Wc = cache_k.shape[1]
-    slot_pos[pos.long() % Wc] = pos
+    if pos.ndim:
+        rows = torch.arange(slot_pos.shape[0], device=pos.device)
+        slot_pos[rows, pos.long() % Wc] = pos
+    else:
+        slot_pos[pos.long() % Wc] = pos
     valid = torch.clamp(pos + 1, max=Wc)
     attn = layers.decode_attention(q, cache_k, cache_v, q_position=pos,
                                    kv_positions=slot_pos, valid_len=valid)
@@ -311,9 +371,9 @@ def _mlp_part(p, x, cfg):
 
 def apply_stack(stack: list, x: torch.Tensor, ctx: dict, cfg,
                 cache: Optional[dict], mode: str) -> torch.Tensor:
-    """Run every layer; ``mode`` is ``prefill`` (bulk lane, fills the ring
-    cache), ``decode`` (ring cache), ``decode_paged``, ``chunk`` or
-    ``chunks`` (the paged cache).  Caches are updated in place; returns
+    """Run every layer; ``mode`` is ``prefill`` (fills a ring cache),
+    ``decode`` (a ring cache, batch or per-slot), ``decode_paged``,
+    ``chunk`` or ``chunks`` (the paged cache).  Caches are updated in place; returns
     the hidden states."""
     for i, p in enumerate(stack):
         lc = cache["layers"][i] if cache is not None else None

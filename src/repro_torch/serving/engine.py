@@ -1,32 +1,43 @@
 """Real-time serving engine: RT-LM scheduling over the PyTorch model.
 
-Port of ``repro.serving.engine``, restricted to the paper's real-time
-serving loop: ``ServingEngine(mode="continuous", kv="paged",
-prefill="chunked", decode_steps=N)`` on a dense full-attention stack.  A
+Port of ``repro.serving.engine`` on dense full-attention stacks.  A
 request goes through RULEGEN features and the m_theta uncertainty ``u``,
-UASCHED priority and admission (a request the policy offloads goes to the
-bulk lane), the worst-case block reservation, the token-budgeted chunk
-plan packed into one ragged batch, ONE fused prefill launch per iteration
-(``model.prefill_chunks`` -> the ``ragged_chunked_prefill`` kernel), and
-N-step decode windows over the paged pool (``model.decode_steps_paged``
--> the ``paged_decode_attention`` kernel), with eviction in arrears
-through the ``CompletionWorker``.
+then UASCHED priority and admission (a request the policy offloads goes
+to the bulk lane), and runs in one of the reference's two modes:
 
-The bulk lane (``_run_batch``) runs a run-to-completion batch through
-``generate`` on the contiguous ring cache, as in the reference.
+  * ``mode="batch"`` (the paper's run-to-completion baseline):
+    ``policy.select`` forms whole batches, each decoded through
+    ``generate`` on the contiguous ring cache until its longest member
+    finishes (``_run_batch``, which also serves the bulk lane);
+  * ``mode="continuous"``: a persistent decode loop over C slots in which
+    ``policy.admit`` fills each freed slot, with N-step decode windows and
+    eviction in arrears through the ``CompletionWorker``.  The KV layout
+    is ``kv="contiguous"`` (a private ring per slot) or ``kv="paged"``
+    (one block pool, a worst-case block reservation per admission), and
+    the prompt enters by ``prefill="stall"`` (one full prefill per
+    admission, ``model.prefill_into_slot`` / ``prefill_into_paged``) or,
+    on the paged pool, ``prefill="chunked"`` (the token-budgeted chunk
+    plan packed into ONE fused launch per iteration,
+    ``model.prefill_chunks`` -> the ``ragged_chunked_prefill`` kernel).
+    Paged decode windows run ``model.decode_steps_paged`` -> the
+    ``paged_decode_attention`` kernel.  ``prefix_cache=True`` (paged)
+    shares cached prompt blocks through ``kvcache.PrefixCache``: a hit
+    copies-on-write a fully matched last block
+    (``transformer.copy_paged_block``) and prefills only the uncached
+    suffix through the fused ragged launch; ``persist_prefix_cache=True``
+    keeps the pool and index across serves.
 
 The host bookkeeping is the reference's, line for line, because the
-reference simulator (``repro.core.simulator.simulate_continuous``) mirrors
-it and is the port's oracle: completion order, ``budget_trace``, the
-prefill and decode dispatch traces, the fused launch's shape-key counters
-(``exec_cache_hits``/``misses``), KV utilization samples and
-``rejected_for_memory``.  The page pools and per-slot positions live on
-the device and are updated in place.
+reference simulator (``repro.core.simulator.simulate`` and
+``simulate_continuous``) mirrors it and is the port's oracle: completion
+order, ``budget_trace``, the prefill and decode dispatch traces, the
+fused launch's shape-key counters (``exec_cache_hits``/``misses``), KV
+utilization samples, ``rejected_for_memory`` and the prefix-cache
+counters.  Caches live on the device and are updated in place.
 
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-item: ``mode="batch"``, ``kv="contiguous"``, ``prefill="stall"``, the
-prefix cache (``prefix_cache``, ``persist_prefix_cache``), fault plans
-(``faults``), observability (``obs``) and non-dense model families.
+item: fault plans (``faults``, ``serve(step_offset=)``), observability
+(``obs``) and non-dense model families.
 """
 
 from __future__ import annotations
@@ -41,11 +52,13 @@ import torch
 from .. import resolve_device
 from ..core import priority as prio
 from ..core import scheduler as sched_lib
-from ..kvcache import BlockAllocator, blocks_for_tokens, window_target_tokens
+from ..kvcache import (BlockAllocator, PrefixCache, blocks_for_tokens,
+                       window_target_tokens)
 from ..kvcache.paged import PagedKVCache
 from ..models import model as model_lib, transformer
 from ..obs.metrics import Histogram
-from ..prefill import ChunkScheduler, build_packed_arrays, pack_plans
+from ..prefill import (ChunkScheduler, build_packed_arrays, pack_plans,
+                       suffix_shape_key)
 from . import generate
 from .pipeline import CompletionWorker
 
@@ -107,15 +120,16 @@ def _not_ported(what: str, item: str):
 
 
 class ServingEngine:
-    """Continuous, paged, chunked-prefill engine with a pluggable policy.
+    """Single-node engine with a pluggable scheduling policy.
 
-    ``mode``, ``kv`` and ``prefill`` default to the reference's
-    ``"batch"``, ``"contiguous"`` and ``"stall"``, which are not ported
-    and raise: a caller names the ported path, ``mode="continuous",
-    kv="paged", prefill="chunked"``.  ``params`` must live on ``device``;
-    ``device=None`` means the card and raises when none is present.  On
-    the card the model runs the CUDA kernels; on the CPU it runs the
-    reference's plain attention path (``use_pallas=False``)."""
+    ``mode="batch"``: ``policy.select`` forms run-to-completion batches.
+    ``mode="continuous"``: ``policy.admit`` fills decode slots per window.
+    The constructor validates the reference's configuration matrix and
+    raises its ``ValueError`` for every invalid row.  ``params`` must live
+    on ``device``; ``device=None`` means the card and raises when none is
+    present.  On the card the paged attention layers run the CUDA kernels;
+    on the CPU they run the reference's plain path (``use_pallas=False``).
+    """
 
     def __init__(self, params, cfg, policy: sched_lib.Policy,
                  profile: sched_lib.OfflineProfile, *,
@@ -133,20 +147,42 @@ class ServingEngine:
                  persist_prefix_cache: bool = False,
                  faults=None, obs=None, device=None):
         self.device = resolve_device(device)
-        if mode == "batch":
-            raise _not_ported('mode="batch"', "Queue 1 item 6")
-        if mode != "continuous":
+        # the reference's validation, in its order and with its messages
+        if mode not in ("batch", "continuous"):
             raise ValueError(f"unknown mode {mode!r}")
-        if kv == "contiguous":
-            raise _not_ported('kv="contiguous"', "Queue 1 item 6")
-        if kv != "paged":
+        if kv not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv layout {kv!r}")
-        if prefill == "stall":
-            raise _not_ported('prefill="stall"', "Queue 1 item 6")
-        if prefill != "chunked":
+        if kv == "paged" and mode != "continuous":
+            raise ValueError('kv="paged" requires mode="continuous"')
+        if prefill not in ("stall", "chunked"):
             raise ValueError(f"unknown prefill mode {prefill!r}")
-        if prefix_cache or persist_prefix_cache:
-            raise _not_ported("the prefix cache", "Queue 1 item 6")
+        if prefill == "chunked" and kv != "paged":
+            raise ValueError('prefill="chunked" requires mode="continuous"'
+                             ', kv="paged"')
+        if prefix_cache and kv != "paged":
+            raise ValueError('prefix_cache=True requires mode="continuous"'
+                             ', kv="paged"')
+        if decode_steps < 1:
+            raise ValueError(f"decode_steps must be >= 1, got "
+                             f"{decode_steps}")
+        if decode_steps > 1 and mode != "continuous":
+            raise ValueError('decode_steps > 1 requires mode="continuous" '
+                             "(batch mode has no persistent decode loop)")
+        if decode_steps - 1 > _MAX_LEN_SLACK:
+            raise ValueError(
+                f"decode_steps={decode_steps}: the eviction lag "
+                f"(decode_steps - 1 overhang writes past a sequence's "
+                f"end) exceeds the max_len slack ({_MAX_LEN_SLACK}) that "
+                "keeps dead-row writes inside the slot's own KV range")
+        if persist_prefix_cache and not prefix_cache:
+            raise ValueError("persist_prefix_cache=True requires "
+                             "prefix_cache=True")
+        if faults is not None and (mode != "continuous"
+                                   or prefill != "stall"):
+            raise ValueError('faults (serving.faults.ReplicaFaults) '
+                             'require mode="continuous", '
+                             'prefill="stall"')
+        # what the port does not serve yet
         if faults is not None:
             raise _not_ported("fault plans (faults=)", "Queue 1 item 8")
         if obs is not None:
@@ -154,17 +190,6 @@ class ServingEngine:
         if cfg.family != "dense":
             raise _not_ported(f"model family {cfg.family!r}",
                               "Queue 1 item 9")
-        ok, why = transformer.paged_supported(cfg)
-        if not ok:
-            raise NotImplementedError(f"paged KV cache: {why}")
-        if decode_steps < 1:
-            raise ValueError(f"decode_steps must be >= 1, got "
-                             f"{decode_steps}")
-        if decode_steps - 1 > _MAX_LEN_SLACK:
-            raise ValueError(
-                f"decode_steps={decode_steps}: the eviction lag "
-                f"(decode_steps - 1 overhang writes past a sequence's "
-                f"end) exceeds the max_len slack ({_MAX_LEN_SLACK})")
         emb = params["embed"]["embedding"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params on {emb.device}, engine device "
@@ -182,6 +207,7 @@ class ServingEngine:
         self.kv = kv
         self.max_len = input_bucket + max_new_tokens + _MAX_LEN_SLACK
         self.decode_steps = decode_steps
+        self.persist_prefix_cache = persist_prefix_cache
         self.num_slots = (num_slots if num_slots is not None
                           else self.persona.batch_size)
         self.kv_block_size = kv_block_size
@@ -189,23 +215,38 @@ class ServingEngine:
         self.chunk_size = chunk_size
         self.token_budget = (token_budget if token_budget is not None
                              else self.num_slots + chunk_size)
-        ChunkScheduler(chunk_size, self.token_budget)   # validates
+        if prefill == "chunked":
+            ChunkScheduler(chunk_size, self.token_budget)   # validates
         self.use_kernels = self.device.type == "cuda"
         self.kv_num_blocks = (
             kv_num_blocks if kv_num_blocks is not None
             else self.num_slots * blocks_for_tokens(self.max_len,
                                                     kv_block_size))
-        worst = blocks_for_tokens(input_bucket + max_new_tokens - 1,
-                                  kv_block_size)
-        if worst > self.kv_num_blocks:
-            raise ValueError(
-                f"kv_num_blocks={self.kv_num_blocks} cannot hold one "
-                f"worst-case sequence ({worst} blocks) — admission "
-                "would deadlock")
+        if kv == "paged":
+            ok, why = transformer.paged_supported(cfg)
+            if not ok:
+                raise NotImplementedError(f"paged KV cache: {why}")
+            worst = blocks_for_tokens(input_bucket + max_new_tokens - 1,
+                                      kv_block_size)
+            if worst > self.kv_num_blocks:
+                raise ValueError(
+                    f"kv_num_blocks={self.kv_num_blocks} cannot hold one "
+                    f"worst-case sequence ({worst} blocks) — admission "
+                    "would deadlock")
+        # batch-mode batches run at the policy's max consolidated batch
+        # (b * C for UASCHED, C otherwise), padded rows capped at 1 token
         self.batch_capacity = policy.max_batch()
+        self.prefix_cache_enabled = prefix_cache
         self.scheduler_overhead_s = 0.0
+        # per-slot ring cache after the last contiguous continuous serve,
+        # and the admission audit trail
+        self.slot_cache: Optional[dict] = None
+        self.admission_log: List[Dict] = []
         self.paged_cache: Optional[PagedKVCache] = None
         self.allocator: Optional[BlockAllocator] = None
+        # live PrefixCache of the last serve (prefix_cache=True); rebuilt
+        # per serve unless persist_prefix_cache=True
+        self.prefix_cache: Optional[PrefixCache] = None
         self.kv_util_samples: List[float] = []
         self._rejected_ids: set = set()
         self.peak_concurrency = 0
@@ -246,8 +287,8 @@ class ServingEngine:
 
     def _run_batch(self, batch: Sequence[prio.SimTask], lane: str,
                    now: float) -> float:
-        """Execute a run-to-completion bulk-lane batch; returns its finish
-        time on the engine clock."""
+        """Execute a run-to-completion batch (batch mode, or the bulk
+        lane); returns its finish time on the engine clock."""
         Cb = self.batch_capacity
         arr = np.zeros((Cb, self.input_bucket), np.int32)
         for i, t in enumerate(batch):
@@ -264,12 +305,17 @@ class ServingEngine:
         toks = out_tokens.cpu().numpy()
         lengths = lengths.cpu().numpy()
         dur = time.perf_counter() - t0
-        # bulk-lane batches count in the prefill total only: the
-        # per-iteration trace is the decode loop's launch profile
-        self.prefill_dispatches += 1
+        self.prefill_dispatches += 1           # one launch per batch
         if lane == "cpu":
             dur *= self.persona.cpu_slowdown   # bulk-lane emulation
         finish = now + dur
+        if self.mode == "batch":
+            # the per-iteration trace and the rows used of the batch; in
+            # continuous modes both track the decode loop, so a bulk-lane
+            # batch counts in the total only
+            self.prefill_dispatch_trace.append(1)
+            self.kv_util_samples.append(len(batch) / Cb)
+            self.peak_concurrency = max(self.peak_concurrency, len(batch))
         horizon = max(max((int(lengths[i]) for i in range(len(batch))),
                           default=1), 1)
         for i, t in enumerate(batch):
@@ -283,8 +329,16 @@ class ServingEngine:
         return finish
 
     # ------------------------------------------------------------------
-    def serve(self, requests: Sequence[Request]) -> Dict:
-        """Run a full trace (virtual-time arrivals, real execution)."""
+    def serve(self, requests: Sequence[Request], *,
+              step_offset: int = 0) -> Dict:
+        """Run a full trace (virtual-time arrivals, real execution).
+        ``step_offset`` belongs to the failover rounds of fault plans,
+        which are not ported."""
+        if step_offset:
+            if self.mode != "continuous" or self.prefill != "stall":
+                raise ValueError("step_offset requires the continuous "
+                                 "stall serve loop")
+            raise _not_ported("serve(step_offset=)", "Queue 1 item 8")
         self.kv_util_samples = []
         self._rejected_ids = set()
         self.peak_concurrency = 0
@@ -299,14 +353,24 @@ class ServingEngine:
         self.decode_dispatches = 0
         self.decode_steps_total = 0
         self.decode_dispatch_trace = []
+        if not self.persist_prefix_cache:
+            # the page pool is rebuilt per serve: cached block ids must
+            # not outlive it
+            self.prefix_cache = None
         self._worker = CompletionWorker()
         try:
-            return self._serve_continuous_chunked(requests)
+            if self.mode == "continuous":
+                if self.prefill == "chunked":
+                    return self._serve_continuous_chunked(requests)
+                return self._serve_continuous(requests)
+            return self._serve_batch(requests)
         finally:
             self._worker.close()
             self._worker = None
 
     def _result(self, done: List[prio.SimTask], n: int) -> Dict:
+        ps = (self.prefix_cache.stats()
+              if self.prefix_cache is not None else {})
         rts = (np.array([t.response_time for t in done]) if done
                else np.zeros(1))
         span = (max(t.finish for t in done) - min(t.r for t in done)
@@ -354,16 +418,71 @@ class ServingEngine:
             "decode_dispatches": self.decode_dispatches,
             "decode_steps_executed": self.decode_steps_total,
             "decode_dispatch_trace": list(self.decode_dispatch_trace),
+            "prefix_hit_rate": ps.get("prefix_hit_rate", 0.0),
+            "cached_tokens_reused": ps.get("cached_tokens_reused", 0),
+            "cow_copies": ps.get("cow_copies", 0),
+            "prefix_evictions": ps.get("prefix_evictions", 0),
             "kv": {"kind": self.kv, "num_slots": self.num_slots,
                    "block_size": self.kv_block_size,
-                   "num_blocks": self.kv_num_blocks},
+                   "num_blocks": self.kv_num_blocks,
+                   "prefix_cache": self.prefix_cache_enabled},
             "prefill": {"kind": self.prefill,
                         "chunk_size": self.chunk_size,
                         "token_budget": self.token_budget},
             "pipeline": {"decode_steps": self.decode_steps,
+                         "persist_prefix_cache": self.persist_prefix_cache,
                          "use_kernels": self.use_kernels},
             "device": str(self.device),
         }
+
+    def _serve_batch(self, requests: Sequence[Request]) -> Dict:
+        """Run-to-completion batches formed by ``policy.select``: a batch
+        dispatches when the queue holds a persona batch, its oldest
+        request has waited ``xi``, or no request is left to arrive."""
+        pending = sorted(requests, key=lambda r: r.arrival)
+        sim_tasks = [self._to_sim_task(r) for r in pending]
+        queue: List[prio.SimTask] = []
+        bulk: List[prio.SimTask] = []
+        done: List[prio.SimTask] = []
+        now = 0.0
+        i = 0
+        n = len(sim_tasks)
+        C = self.persona.batch_size
+        while len(done) < n:
+            while i < n and sim_tasks[i].r <= now + 1e-9:
+                queue.append(sim_tasks[i])
+                i += 1
+            if queue and (len(queue) >= C
+                          or now - min(t.r for t in queue) >= self.xi
+                          or i >= n):
+                t0 = time.perf_counter()
+                gpu_b, cpu_b, rest = self.policy.select(list(queue), now)
+                self.scheduler_overhead_s += time.perf_counter() - t0
+                queue = list(rest)
+                bulk.extend(cpu_b)
+                if gpu_b:
+                    Cb = self.batch_capacity
+                    now = self._run_batch(gpu_b[:Cb], "gpu", now)
+                    done.extend(gpu_b[:Cb])
+                    queue.extend(gpu_b[Cb:])
+                    continue
+            if bulk and not queue:
+                batch, bulk = bulk[:C], bulk[C:]
+                now = self._run_batch(batch, "cpu", now)
+                done.extend(batch)
+                continue
+            # idle: advance to the next arrival / window expiry
+            cand = []
+            if i < n:
+                cand.append(sim_tasks[i].r)
+            if queue:
+                cand.append(min(t.r for t in queue) + self.xi)
+            future = [c for c in cand if c > now]
+            if future:
+                now = min(future)
+            else:
+                now += self.xi
+        return self._result(done, n)
 
     # ------------------------------------------------------------------
     # continuous batching: persistent decode loop with slot recycling
@@ -371,10 +490,11 @@ class ServingEngine:
 
     def _extend_block_tables(self, active, slot_task, slot_gen, slot_cap,
                              alloc, kvc, steps: int) -> None:
-        """Before a decode window, extend each active slot's table to cover
-        every useful write of the next ``steps`` steps
+        """Before a paged decode window, extend each active slot's table to
+        cover every useful write of the next ``steps`` steps
         (``window_target_tokens``, clamped at the admission reservation);
-        overhang writes past the clamp land on the trash page."""
+        overhang writes past the clamp land on the trash page.  Shared by
+        the stall and chunked serve loops."""
         S = self.input_bucket
         for s in active:
             tid = slot_task[s].task.task_id
@@ -387,12 +507,16 @@ class ServingEngine:
 
     def _advance_decode_window(self, active, window_host, now, dt,
                                slot_task, slot_gen, slot_cap, tokens,
-                               done, alloc, kvc, reserved) -> None:
-        """Window-end (in-arrears) bookkeeping: consume the (C, n) window
-        tokens step-major, record each with its interpolated emission
-        time, finish sequences at their EOS/cap step, and evict the
-        finished ones, in slot order, only after the whole window is
-        consumed (the eviction-lag invariant)."""
+                               done, *, alloc=None, kvc=None,
+                               reserved=None) -> None:
+        """Window-end (in-arrears) bookkeeping, shared by the stall and
+        chunked serve loops: consume the (C, n) window tokens step-major,
+        record each with its interpolated emission time, finish sequences
+        at their EOS/cap step, and evict the finished ones, in slot order,
+        only after the whole window is consumed (the eviction-lag
+        invariant).  ``alloc``/``kvc``/``reserved``: the paged pool's
+        state, whose blocks eviction returns (None on the contiguous
+        cache)."""
         n = window_host.shape[1]
         finished: List[int] = []
         for j in range(n):
@@ -419,25 +543,249 @@ class ServingEngine:
             tid = slot_task[s].task.task_id
             slot_task[s] = None
             tokens[s, 0] = generate.PAD_ID
-            alloc.free_sequence(tid)
-            kvc.clear_table(s)
-            reserved[s] = 0
+            if alloc is not None:
+                alloc.free_sequence(tid)
+                kvc.clear_table(s)
+                reserved[s] = 0
 
     def _paged_setup(self):
-        """Build the paged serve state (page pool on the device, host
-        allocator); rebuilt per serve."""
+        """Build, or with ``persist_prefix_cache=True`` revive, the paged
+        serve state: the page pool on the device, the host allocator and
+        the prefix cache.  On the persistent path the pool's cached blocks
+        keep their K/V across serves (every decode slot was evicted at the
+        previous serve's end, so only cache-pinned blocks are live) and
+        the index keeps its entries while its per-serve counters reset."""
+        if (self.persist_prefix_cache and self.paged_cache is not None
+                and self.prefix_cache is not None):
+            self.prefix_cache.reset_stats()
+            return self.paged_cache, self.allocator, self.prefix_cache
         kvc = PagedKVCache(self.cfg, self.num_slots, self.kv_num_blocks,
                            self.kv_block_size, self.max_len,
                            device=self.device)
         alloc = BlockAllocator(self.kv_num_blocks, self.kv_block_size)
         self.paged_cache, self.allocator = kvc, alloc
-        return kvc, alloc
+        pc = None
+        if self.prefix_cache_enabled:
+            pc = PrefixCache(alloc, self.kv_block_size)
+            self.prefix_cache = pc
+        return kvc, alloc, pc
+
+    def _exec_key_seen(self, key: tuple) -> None:
+        """Count a fused prefill launch's padded shape key as an
+        executable-cache hit or miss (the reference's jit memo, mirrored
+        by the simulator)."""
+        if key in self._exec_keys:
+            self.exec_cache_hits += 1
+        else:
+            self._exec_keys.add(key)
+            self.exec_cache_misses += 1
+
+    def _prefix_admit(self, cache, kvc, alloc, pc, slot: int, tid: int,
+                      toks: np.ndarray) -> torch.Tensor:
+        """Stall admission with the prefix cache: share the matched
+        blocks, copy-on-write a fully matched last block, prefill only the
+        uncached suffix (a miss prefills the whole prompt), then index the
+        fresh blocks.  Returns the last position's logits (V,)."""
+        S = self.input_bucket
+        plan = pc.admit(tid, toks)
+        kvc.set_table(slot, alloc.table(tid))
+        for src, dst in plan.cow:
+            transformer.copy_paged_block(cache, src, dst)
+        if plan.start == 0:
+            last_logits = model_lib.prefill_into_paged(
+                self.params, self.cfg, cache, self._to_device(toks[None]),
+                slot, kvc.table_row(slot), self.max_len)
+        else:
+            # the uncached suffix as a single-chunk fused launch
+            key = suffix_shape_key(S - plan.start)
+            self._exec_key_seen(key)
+            tokens_arr, token_chunk, meta, tabs = build_packed_arrays(
+                key, [(slot, plan.start, toks[plan.start:],
+                       alloc.table(tid))],
+                pad_slot=self.num_slots,
+                table_width=kvc.max_blocks_per_seq,
+                trash_block=kvc.trash_block)
+            last_logits = model_lib.prefill_chunks(
+                self.params, self.cfg, cache, self._to_device(tokens_arr),
+                self._to_device(token_chunk), self._to_device(meta),
+                self._to_device(tabs), chunk_pad=key[2],
+                use_kernels=self.use_kernels)[0]
+        pc.commit(tid, toks)
+        return last_logits
+
+    def _serve_continuous(self, requests: Sequence[Request]) -> Dict:
+        """Continuous serve with stall admission, on the contiguous
+        per-slot ring cache or the paged pool.
+
+        Each iteration fills the free slots (one ``policy.admit`` call and
+        one full prefill of the admitted prompt per slot, the decode loop
+        stalled meanwhile), then runs one N-step decode window over all
+        slots."""
+        C = self.num_slots
+        S = self.input_bucket
+        paged = self.kv == "paged"
+        pending = sorted(requests, key=lambda r: r.arrival)
+        sim_tasks = [self._to_sim_task(r) for r in pending]
+        n = len(sim_tasks)
+        queue: List[prio.SimTask] = []
+        bulk: List[prio.SimTask] = []
+        done: List[prio.SimTask] = []
+        pc = kvc = alloc = reserved = None
+        if paged:
+            kvc, alloc, pc = self._paged_setup()
+            cache = kvc.state
+            reserved = [0] * C       # per-slot worst-case block holdback
+        else:
+            cache = transformer.init_slot_cache(self.cfg, C, self.max_len,
+                                                device=self.device)
+        slot_task: List[Optional[prio.SimTask]] = [None] * C
+        slot_gen = [0] * C
+        slot_cap = [0] * C
+        tokens = np.zeros((C, 1), np.int32)     # host copy of next tokens
+        self.admission_log = []
+        now = 0.0
+        i = 0
+        step = 0
+        while len(done) < n:
+            while i < n and sim_tasks[i].r <= now + 1e-9:
+                queue.append(sim_tasks[i])
+                i += 1
+            iter_stall = 0.0
+            iter_launches = 0
+
+            # --- admissions: fill freed slots, one policy call per slot
+            while queue and None in slot_task:
+                running = [t for t in slot_task if t is not None]
+                prev_queue = list(queue)
+                t0 = time.perf_counter()
+                task, lane, rest = self.policy.admit(list(queue), now,
+                                                     running)
+                self.scheduler_overhead_s += time.perf_counter() - t0
+                if task is None:
+                    break
+                queue = list(rest)
+                if lane == "cpu":
+                    bulk.append(task)
+                    continue
+                cap = self._cap(task.task)
+                if paged:
+                    # worst-case reservation gate (the simulator's
+                    # block-budget model mirrors it bit for bit)
+                    need = blocks_for_tokens(S + cap - 1,
+                                             self.kv_block_size)
+                    if need > self.kv_num_blocks - sum(reserved):
+                        queue = prev_queue       # leave it queued
+                        self._rejected_ids.add(task.task.task_id)
+                        break
+                slot = slot_task.index(None)
+                if paged:
+                    reserved[slot] = need
+                tid = task.task.task_id
+                task.task.queue_wait_s = now - task.r
+                stalled = any(t is not None for t in slot_task)
+                toks = self._tokenize_padded(task.task.text)
+                t0 = time.perf_counter()
+                if pc is not None:
+                    last_logits = self._prefix_admit(cache, kvc, alloc, pc,
+                                                     slot, tid, toks)
+                elif paged:
+                    kvc.set_table(slot, alloc.allocate_n(
+                        tid, alloc.blocks_for(S)))
+                    last_logits = model_lib.prefill_into_paged(
+                        self.params, self.cfg, cache,
+                        self._to_device(toks[None]), slot,
+                        kvc.table_row(slot), self.max_len)
+                else:
+                    last_logits = model_lib.prefill_into_slot(
+                        self.params, self.cfg, cache,
+                        self._to_device(toks[None]), slot, self.max_len)
+                first = int(torch.argmax(last_logits))
+                dt = time.perf_counter() - t0
+                now += dt
+                self.prefill_dispatches += 1   # one launch per admission
+                iter_launches += 1
+                if stalled:       # live slots waited out this prefill
+                    self.prefill_stall_s += dt
+                    iter_stall += dt
+                task.start, task.lane = now, "gpu"
+                task.task.start, task.task.lane = now, "gpu"
+                task.task.slot = slot
+                task.task.out_tokens = [first]
+                task.task.token_times = [now]
+                self.admission_log.append(
+                    {"task_id": tid, "slot": slot, "step": step,
+                     "now": now})
+                if first == self.eos_id or cap <= 1:
+                    task.finish = now
+                    task.task.finish, task.task.out_len = now, 1
+                    done.append(task)
+                    if paged:
+                        alloc.free_sequence(tid)
+                        kvc.clear_table(slot)
+                        reserved[slot] = 0
+                else:
+                    slot_task[slot] = task
+                    slot_gen[slot], slot_cap[slot] = 1, cap
+                    tokens[slot, 0] = first
+
+            self.prefill_stall_max_s = max(self.prefill_stall_max_s,
+                                           iter_stall)
+            if iter_launches:
+                self.prefill_dispatch_trace.append(iter_launches)
+            active = [s for s in range(C) if slot_task[s] is not None]
+            if active:
+                self.peak_concurrency = max(self.peak_concurrency,
+                                            len(active))
+                # --- one N-step decode WINDOW over ALL slots
+                nsteps = self.decode_steps
+                t0 = time.perf_counter()
+                if paged:
+                    self._extend_block_tables(active, slot_task, slot_gen,
+                                              slot_cap, alloc, kvc, nsteps)
+                    window_tok = model_lib.decode_steps_paged(
+                        self.params, self.cfg, cache,
+                        self._to_device(tokens), kvc.tables_device(),
+                        num_steps=nsteps, use_kernels=self.use_kernels)
+                else:
+                    window_tok = model_lib.decode_steps(
+                        self.params, self.cfg, cache,
+                        self._to_device(tokens), num_steps=nsteps)
+                self._worker.submit(window_tok, t0)
+                window_host, dt = self._worker.collect()
+                now += dt
+                step += nsteps
+                self.decode_dispatches += 1
+                self.decode_steps_total += nsteps
+                self.decode_dispatch_trace.append(nsteps)
+                self.kv_util_samples.append(
+                    alloc.utilization() if paged else len(active) / C)
+                self._advance_decode_window(
+                    active, window_host, now, dt, slot_task, slot_gen,
+                    slot_cap, tokens, done, alloc=alloc, kvc=kvc,
+                    reserved=reserved)
+                continue
+
+            if bulk and not queue:
+                batch, bulk = bulk[:C], bulk[C:]
+                now = self._run_batch(batch, "cpu", now)
+                done.extend(batch)
+                continue
+
+            # idle: advance to the next arrival
+            if i < n:
+                now = max(now, sim_tasks[i].r)
+            else:
+                now += self.xi
+        if not paged:
+            self.slot_cache = cache
+        return self._result(done, n)
 
     def _serve_continuous_chunked(self, requests: Sequence[Request]) -> Dict:
         """Continuous serve with chunked prefill over the paged pool.
 
-        Admission allocates a slot plus the prompt's blocks and enqueues a
-        chunk job; each iteration packs the token budget (decode tokens
+        Admission allocates a slot plus the prompt's blocks (with the
+        prefix cache: shares the cached prefix, and the job covers only
+        the uncached suffix) and enqueues a chunk job; each iteration packs the token budget (decode tokens
         first, then prefill chunks in the policy's priority order), runs
         the whole plan as ONE fused ragged launch, then one N-step decode
         window over all slots."""
@@ -449,7 +797,7 @@ class ServingEngine:
         queue: List[prio.SimTask] = []
         bulk: List[prio.SimTask] = []
         done: List[prio.SimTask] = []
-        kvc, alloc = self._paged_setup()
+        kvc, alloc, pc = self._paged_setup()
         cache = kvc.state
         reserved = [0] * C           # per-slot worst-case block holdback
         sched = ChunkScheduler(self.chunk_size, self.token_budget)
@@ -459,7 +807,9 @@ class ServingEngine:
         job_cap: Dict[int, int] = {}            # slot -> decode cap
         job_tokens: Dict[int, np.ndarray] = {}  # slot -> padded prompt
         job_row: Dict[int, np.ndarray] = {}     # slot -> host table row
+        job_start: Dict[int, int] = {}          # slot -> cached prefix
         tokens = np.zeros((C, 1), np.int32)
+        self.admission_log = []
         now = 0.0
         i = 0
         step = 0
@@ -499,15 +849,29 @@ class ServingEngine:
                 # table row stays on the trash page until prefill
                 # completes (the decode step writes every row)
                 toks = self._tokenize_padded(task.task.text)
-                alloc.allocate_n(task.task.task_id, alloc.blocks_for(S))
+                start = 0
+                if pc is not None:
+                    # matched prefix blocks are shared into the table;
+                    # the chunk job covers only the uncached suffix
+                    plan = pc.admit(task.task.task_id, toks)
+                    start = plan.start
+                    for src, dst in plan.cow:
+                        transformer.copy_paged_block(cache, src, dst)
+                else:
+                    alloc.allocate_n(task.task.task_id, alloc.blocks_for(S))
                 row = np.full((kvc.max_blocks_per_seq,), kvc.trash_block,
                               np.int32)
                 tbl = alloc.table(task.task.task_id)
                 row[:len(tbl)] = tbl
                 job_row[slot] = row
                 job_tokens[slot] = toks
+                job_start[slot] = start
                 job_cap[slot] = cap
-                sched.add(task, slot, S, self.policy.assign_priority(task))
+                sched.add(task, slot, S - start,
+                          self.policy.assign_priority(task))
+                self.admission_log.append(
+                    {"task_id": task.task.task_id, "slot": slot,
+                     "step": step, "now": now})
 
             # --- chunk phase: the whole plan as one fused ragged launch
             iter_stall = 0.0
@@ -516,16 +880,16 @@ class ServingEngine:
             batch_plan = pack_plans(plans)
             if batch_plan is not None:
                 key = batch_plan.shape_key
-                if key in self._exec_keys:
-                    self.exec_cache_hits += 1
-                else:
-                    self._exec_keys.add(key)
-                    self.exec_cache_misses += 1
-                entries = [(ch.slot, ch.start,
-                            job_tokens[ch.slot][ch.start:
-                                                ch.start + ch.length],
-                            job_row[ch.slot])
-                           for ch in batch_plan.chunks]
+                self._exec_key_seen(key)
+                # chunk offsets are relative to the job (the uncached
+                # suffix); job_start shifts them to prompt positions
+                entries = []
+                for ch in batch_plan.chunks:
+                    base = job_start[ch.slot] + ch.start
+                    entries.append((ch.slot, base,
+                                    job_tokens[ch.slot][base:
+                                                        base + ch.length],
+                                    job_row[ch.slot]))
                 tokens_arr, token_chunk, meta, tabs = build_packed_arrays(
                     key, entries, pad_slot=C,
                     table_width=kvc.max_blocks_per_seq,
@@ -553,8 +917,10 @@ class ServingEngine:
                     s = ch.slot
                     task = ch.job.task
                     first = int(next_ids[ci])
+                    if pc is not None:
+                        pc.commit(task.task.task_id, job_tokens[s])
                     cap = job_cap.pop(s)
-                    del job_tokens[s], job_row[s]
+                    del job_tokens[s], job_row[s], job_start[s]
                     task.start, task.lane = now, "gpu"
                     task.task.start, task.task.lane = now, "gpu"
                     task.task.slot = s
@@ -602,7 +968,8 @@ class ServingEngine:
                 self.kv_util_samples.append(alloc.utilization())
                 self._advance_decode_window(
                     active, window_host, now, dt, slot_task, slot_gen,
-                    slot_cap, tokens, done, alloc, kvc, reserved)
+                    slot_cap, tokens, done, alloc=alloc, kvc=kvc,
+                    reserved=reserved)
                 continue
             if plans:
                 continue

@@ -1,15 +1,17 @@
 """Batched generation (port of ``repro.serving.generate``).
 
 ``generate`` is host-loop greedy decoding of a batch over the contiguous
-ring cache, with early exit when every row is done: the engine's bulk
-lane.  ``prefill_chunked`` drives one prompt through the single-chunk
-paged prefill (``model.prefill_chunk``), chunk by chunk: what the
-reference's ``make_chunk_prefill_fn`` executable is called for.
+ring cache, with early exit when every row is done: the engine's batch
+mode and bulk lane.  ``prefill_chunked`` drives one prompt through the
+single-chunk paged prefill (``model.prefill_chunk``), chunk by chunk: what
+the reference's ``make_chunk_prefill_fn`` executable is called for.
 
 The reference's jitted executable factories have no counterpart: PyTorch
-runs eagerly, so the engine calls ``model.prefill_chunks`` and
-``model.decode_steps_paged`` directly, and keeps the reference's
-shape-key bookkeeping (``exec_cache_hits``/``misses``) on the host.
+runs eagerly, so the engine calls the model functions directly
+(``model.prefill_into_slot``/``prefill_into_paged``, ``prefill_chunks``,
+``decode_steps``/``decode_steps_paged``,
+``transformer.copy_paged_block``) and keeps the reference's shape-key
+bookkeeping (``exec_cache_hits``/``misses``) on the host.
 """
 
 from __future__ import annotations

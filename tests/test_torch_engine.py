@@ -10,8 +10,12 @@ the JAX engine.
   * engine vs ``repro.serving.engine.ServingEngine`` — identical greedy
     tokens on the same float32 smoke workload, and, with a tau low enough
     to offload, the same bulk-lane task ids and tokens;
-  * refusals — what the slice does not port raises ``NotImplementedError``
-    naming its ROADMAP item, and no card without ``device="cpu"`` raises;
+  * the same greedy-token parity on the two other dense full-attention
+    smoke configs, yi-6b (swiglu, untied ``lm_head``) and minitron-4b
+    (relu, untied);
+  * refusals — what is not ported yet raises ``NotImplementedError``
+    naming its ROADMAP item, the defaults are the reference's and serve,
+    and no card without ``device="cpu"`` raises;
   * ``CompletionWorker`` — FIFO results and error propagation.
 """
 
@@ -175,11 +179,33 @@ def _tokens(res):
     return {t.task.task_id: list(t.task.out_tokens) for t in res["tasks"]}
 
 
-@pytest.mark.parametrize("policy_name,n", [("fifo", 2), ("rt-lm", 4)])
-def test_greedy_tokens_match_jax_engine(setup, serve, policy_name, n):
-    _, res = serve(policy_name, n, **TIGHT)
-    want = _jax_engine(setup, policy_name, n, **TIGHT).serve(
-        _requests(jengine, setup["test"]))
+def _dense_setup(s, name):
+    """``setup`` with another dense smoke config's weights (the corpus,
+    personas and m_theta stay)."""
+    cfg = dataclasses.replace(configs.get_smoke_config(name),
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    jp = jm.init_params(jax.random.PRNGKey(0), cfg)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    return {**s, "cfg": cfg, "jp": jp, "tp": tp}
+
+
+@pytest.mark.parametrize("name,policy_name,n", [
+    pytest.param("starcoder2-3b", "fifo", 2, id="fifo-2"),
+    pytest.param("starcoder2-3b", "rt-lm", 4, id="rt-lm-4"),
+    pytest.param("yi-6b", "rt-lm", 4, id="yi-6b-rt-lm-4"),
+    pytest.param("minitron-4b", "fifo", 2, id="minitron-4b-fifo-2"),
+])
+def test_greedy_tokens_match_jax_engine(setup, serve, name, policy_name, n):
+    if name == "starcoder2-3b":
+        s = setup
+        _, res = serve(policy_name, n, **TIGHT)
+    else:
+        s = _dense_setup(setup, name)
+        res = _port_engine(s, policy_name, n, **TIGHT).serve(
+            _requests(tengine, s["test"]))
+    want = _jax_engine(s, policy_name, n, **TIGHT).serve(
+        _requests(jengine, s["test"]))
     assert res["completion_order"] == want["completion_order"]
     assert _tokens(res) == _tokens(want)
     assert res["budget_trace"] == want["budget_trace"]
@@ -221,13 +247,10 @@ def test_tail_metrics_reported(serve):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="batch"), "Queue 1 item 6"),
-    (dict(kv="contiguous"), "Queue 1 item 6"),
-    (dict(prefill="stall"), "Queue 1 item 6"),
-    (dict(prefix_cache=True), "Queue 1 item 6"),
-    (dict(persist_prefix_cache=True), "Queue 1 item 6"),
-    (dict(faults=object()), "Queue 1 item 8"),
-    (dict(obs=object()), "Queue 1 item 7"),
+    pytest.param(dict(faults=object(), prefill="stall"), "Queue 1 item 8",
+                 id="kw5-Queue 1 item 8"),
+    pytest.param(dict(obs=object()), "Queue 1 item 7",
+                 id="kw6-Queue 1 item 7"),
 ])
 def test_unported_options_are_refused(setup, kw, item):
     base = _engine_kw(1)
@@ -242,18 +265,31 @@ def test_unported_options_are_refused(setup, kw, item):
 
 def test_defaults_are_the_references_and_are_refused(setup):
     """``mode``, ``kv`` and ``prefill`` default to the reference's values
-    (batch, contiguous, stall), which are not ported: a call that relies
-    on the defaults raises instead of running another mode."""
+    (batch, contiguous, stall), and a call that relies on the defaults
+    serves that row: the same completion order and tokens as the JAX
+    engine's defaults."""
     for name in ("mode", "kv", "prefill"):
         assert (inspect.signature(tengine.ServingEngine).parameters[name]
                 .default == inspect.signature(jengine.ServingEngine)
                 .parameters[name].default)
-    pcfg = setup["tprof"].policy_config()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tengine.ServingEngine(
-            setup["tp"], setup["cfg"],
-            tsched.POLICIES["fifo"](setup["tpersona"], pcfg),
-            setup["tprof"], device="cpu")
+    pcfg = dataclasses.replace(setup["tprof"].policy_config(), tau=1e18)
+    eng = tengine.ServingEngine(
+        setup["tp"], setup["cfg"],
+        tsched.POLICIES["fifo"](setup["tpersona"], pcfg),
+        setup["tprof"], input_bucket=BUCKET, max_new_tokens=MAX_NEW,
+        eos_id=-1, device="cpu")
+    assert (eng.mode, eng.kv, eng.prefill) == ("batch", "contiguous",
+                                               "stall")
+    res = eng.serve(_requests(tengine, setup["test"]))
+    jpcfg = dataclasses.replace(setup["jprof"].policy_config(), tau=1e18)
+    want = jengine.ServingEngine(
+        setup["jp"], setup["cfg"],
+        jsched.POLICIES["fifo"](setup["jpersona"], jpcfg), setup["jprof"],
+        input_bucket=BUCKET, max_new_tokens=MAX_NEW, eos_id=-1).serve(
+            _requests(jengine, setup["test"]))
+    assert res["mode"] == want["mode"] == "batch"
+    assert res["completion_order"] == want["completion_order"]
+    assert _tokens(res) == _tokens(want)
 
 
 def test_other_families_are_refused(setup):

@@ -9,7 +9,10 @@
     ``build_packed_arrays``, the block allocator and
     ``window_target_tokens`` give identical outputs on identical inputs;
   * predictor — with the reference weights carried over, the forward pass
-    matches within 1e-5 and one Adam step within a stated tolerance.
+    matches within 1e-5 and one Adam step within a stated tolerance;
+  * ``obs.metrics.Histogram`` — the engine's tail-metric quantiles:
+    ``quantile``, ``count``, ``min``, ``max``, ``mean`` and ``merge`` equal
+    on the same samples.
 """
 
 import ast
@@ -32,6 +35,7 @@ from repro.core import (datagen as jdatagen, personas as jpersonas,  # noqa: E40
                         predictor as jpred, priority as jprio,
                         rulegen as jrulegen, scheduler as jsched)
 from repro.kvcache import allocator as jalloc  # noqa: E402
+from repro.obs import metrics as jmetrics  # noqa: E402
 from repro.prefill import scheduler as jchunk  # noqa: E402
 from repro_torch import configs as tcfgs  # noqa: E402
 from repro_torch.core import (datagen as tdatagen,  # noqa: E402
@@ -40,6 +44,7 @@ from repro_torch.core import (datagen as tdatagen,  # noqa: E402
                               scheduler as tsched)
 from repro_torch.kvcache import allocator as talloc  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
+from repro_torch.obs import metrics as tmetrics  # noqa: E402
 from repro_torch.prefill import scheduler as tchunk  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -272,3 +277,39 @@ def test_offline_profile_trains_on_given_device(corpus):
     assert prof.predictor.device.type == "cpu"
     assert np.isfinite(prof.tau) and np.isfinite(prof.u_scale)
     assert len(prof.predictor.train_losses) == 2
+
+
+# ---------------------------------------------------------------------------
+# tail-metric histogram
+# ---------------------------------------------------------------------------
+
+
+def _hist_state(h):
+    return (h.count, h.min, h.max, h.total, h.zero_count, dict(h.buckets),
+            h.mean, [h.quantile(q) for q in
+                       (0.0, 0.01, 0.25, 0.5, 0.9, 0.99, 0.999, 1.0)])
+
+
+@pytest.mark.parametrize("growth", [1.05, 1.5])
+def test_histogram_identical(growth):
+    """The engine's TTFT / ITL / queue-wait quantiles: the same samples
+    (zeros, sub-millisecond to multi-second latencies, repeats, an
+    infinite one) give the
+    same state and quantiles in both, alone and merged."""
+    rng = np.random.default_rng(int(growth * 100))
+    a = np.concatenate([np.zeros(5), rng.exponential(0.05, 300),
+                        rng.lognormal(1.0, 1.5, 200)])
+    b = np.concatenate([rng.exponential(2.0, 150),
+                        [1e-9, 0.0, 37.5, np.inf]])
+    hists = []
+    for mod in (jmetrics, tmetrics):
+        h1, h2 = mod.Histogram(growth), mod.Histogram(growth)
+        for v in a:
+            h1.record(float(v))
+        h2.record_many(float(v) for v in b)
+        h2.record(0.25, n=3)
+        empty = mod.Histogram(growth)
+        hists.append((_hist_state(h1), _hist_state(h2), empty.quantile(0.5),
+                      _hist_state(h1.merge(h2))))
+    assert hists[0] == hists[1]
+

@@ -7,8 +7,9 @@
     the drop of invalid packed rows;
   * weight bridge — ``params_from_numpy`` is an exact copy (bf16 and f32);
   * model — two fused ragged prefill iterations plus a paged decode
-    window against ``repro.models.model`` on the float32 starcoder2-3b
-    smoke config: logits within a stated tolerance, greedy tokens
+    window against ``repro.models.model`` on the float32 smoke configs of
+    the three dense full-attention models (starcoder2-3b, yi-6b,
+    minitron-4b): logits within a stated tolerance, greedy tokens
     identical, pages equal (see ``_assert_pages`` for the one stated
     exception); the single-chunk paged prefill (``prefill_chunk``) chunk
     by chunk likewise, and bit for bit against the fused path inside the
@@ -254,12 +255,18 @@ def _cfg32():
                                compute_dtype="float32")
 
 
-@pytest.fixture(scope="module")
-def models():
-    cfg = _cfg32()
+def _models(name):
+    cfg = dataclasses.replace(configs.get_smoke_config(name),
+                              param_dtype="float32",
+                              compute_dtype="float32")
     jp = jm.init_params(jax.random.PRNGKey(0), cfg)
     tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
     return cfg, jp, tp
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models("starcoder2-3b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -321,13 +328,23 @@ def _packed(cfg, prompts, ctxs, lens, tables, trash):
                                trash_block=trash), Tp
 
 
-@pytest.mark.parametrize("use_kernels", [False, True])
-def test_prefill_chunks_and_decode_window_match_jax(models, use_kernels):
+@pytest.mark.parametrize("name,use_kernels", [
+    pytest.param("starcoder2-3b", False, id="False"),
+    pytest.param("starcoder2-3b", True, id="True"),
+    pytest.param("yi-6b", False, id="yi-6b-False"),
+    pytest.param("yi-6b", True, id="yi-6b-True"),
+    pytest.param("minitron-4b", False, id="minitron-4b-False"),
+    pytest.param("minitron-4b", True, id="minitron-4b-True"),
+])
+def test_prefill_chunks_and_decode_window_match_jax(models, name,
+                                                    use_kernels):
     """``use_kernels=False`` is the reference's jnp path; ``True`` runs the
     kernel wrappers, which on CPU tensors take their plain versions (no
     probability cast to the page dtype before P.V, hence the wider
-    logit tolerance)."""
-    cfg, jp, tp = models
+    logit tolerance).  Besides starcoder2-3b (gelu, tied embeddings), the
+    two other dense full-attention configs: yi-6b (swiglu, untied
+    ``lm_head``) and minitron-4b (relu, untied)."""
+    cfg, jp, tp = models if name == "starcoder2-3b" else _models(name)
     C, bs, nb = 3, 4, 6
     N = C * nb + 1
     trash = N - 1

@@ -1,0 +1,164 @@
+"""Shared setup of the PyTorch port's engine parity tests
+(``tests/test_torch_engine_modes.py``, ``tests/test_torch_prefix.py``).
+
+One float32 smoke model in both frameworks (the port's weights are the
+reference's, copied bit for bit), an m_theta trained by the reference and
+carried into the port, the test corpus, and helpers that make requests,
+engines and simulator tasks.  The simulator is fed the port's own ``u``, so a
+last-bit float difference between the two MLPs can never reorder a queue.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from repro import configs
+from repro.core import datagen, personas
+from repro.core import priority as jprio
+from repro.core import scheduler as jsched
+from repro.models import model as jm
+from repro.serving import engine as jengine
+from repro_torch.core import personas as tpersonas
+from repro_torch.core import scheduler as tsched
+from repro_torch.models import convert
+from repro_torch.serving import engine as tengine
+
+SLOTS = 3
+MAX_NEW = 6
+BUCKET = 8
+BS = 4
+CAPS = [2, 6, 1, 4, 6, 2, 3, 5, 1, 6, 2, 4]
+CHUNK = 3
+BUDGET = 8
+# a pool too small for every sequence at once: worst case
+# ceil((8 + 5) / 4) = 4 of 7 blocks, so the admission gate binds
+TIGHT = dict(num_slots=4, kv_num_blocks=7)
+
+
+def cfg32(name: str = "starcoder2-3b"):
+    return dataclasses.replace(configs.get_smoke_config(name),
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def make_setup() -> dict:
+    cfg = cfg32()
+    jp = jm.init_params(jax.random.PRNGKey(0), cfg)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    corpus = datagen.generate_corpus(datagen.VARIANCE_MIXES["normal"], 64,
+                                     seed=0)
+    train, test = datagen.train_test_split(corpus, train_frac=0.5)
+    jpersona = dataclasses.replace(personas.get_persona("bart"),
+                                   batch_size=SLOTS)
+    tpersona = dataclasses.replace(tpersonas.get_persona("bart"),
+                                   batch_size=SLOTS)
+    jprof = jsched.offline_profile(train, jpersona, epochs=15)
+    pred = jprof.predictor
+    tprof = tsched.OfflineProfile(
+        predictor=convert.predictor_from_numpy(
+            jax.tree.map(np.asarray, pred.params), pred.mean, pred.std,
+            "cpu"),
+        tau=jprof.tau, u_scale=jprof.u_scale, persona_name="bart")
+    return dict(cfg=cfg, jp=jp, tp=tp, texts=[t.text for t in test],
+                jpersona=jpersona, tpersona=tpersona, jprof=jprof,
+                tprof=tprof)
+
+
+def requests(mod, texts, caps=CAPS):
+    return [mod.Request(text=t, arrival=0.0, task_id=i, max_new_tokens=c)
+            for i, (t, c) in enumerate(zip(texts, caps))]
+
+
+def port_policy(s, name: str, tau: float = 1e18):
+    pcfg = dataclasses.replace(s["tprof"].policy_config(), tau=tau)
+    return tsched.POLICIES[name](s["tpersona"], pcfg)
+
+
+def jax_policy(s, name: str, tau: float = 1e18):
+    pcfg = dataclasses.replace(s["jprof"].policy_config(), tau=tau)
+    return jsched.POLICIES[name](s["jpersona"], pcfg)
+
+
+def port_engine(s, policy_name: str, tau: float = 1e18, **kw):
+    kw = {"input_bucket": BUCKET, "max_new_tokens": MAX_NEW, "eos_id": -1,
+          **kw}
+    return tengine.ServingEngine(s["tp"], s["cfg"],
+                                 port_policy(s, policy_name, tau),
+                                 s["tprof"], device="cpu", **kw)
+
+
+def jax_engine(s, policy_name: str, tau: float = 1e18, **kw):
+    kw = {"input_bucket": BUCKET, "max_new_tokens": MAX_NEW, "eos_id": -1,
+          **kw}
+    return jengine.ServingEngine(s["jp"], s["cfg"],
+                                 jax_policy(s, policy_name, tau),
+                                 s["jprof"], **kw)
+
+
+def sim_tasks(s, texts, caps=CAPS):
+    """``ServingEngine._to_sim_task`` with the output length the engine
+    realises (EOS disabled, cap = exact length)."""
+    pred = s["tprof"].predictor
+    out = []
+    for i, (t, c) in enumerate(zip(texts, caps)):
+        d = jprio.priority_point(0.0, len(t.split()), s["jpersona"].phi,
+                                 None, xi=2.0)
+        out.append(jprio.SimTask(
+            task=jengine.Request(text=t, arrival=0.0, task_id=i),
+            u=float(max(pred.score(t), 0.0)), r=0.0, d=d,
+            input_len=float(len(t.split())), true_out_len=int(c)))
+    return out
+
+
+def prompt_tokens_fn(cfg):
+    """The engine's admission bucket, for
+    ``simulate_continuous(prompt_tokens=...)``."""
+    def fn(task):
+        return jengine.tokenize_padded(task.task.text, cfg.vocab_size,
+                                       BUCKET)
+    return fn
+
+
+def tokens(res) -> dict:
+    return {t.task.task_id: list(t.task.out_tokens) for t in res["tasks"]}
+
+
+def assert_sim_parity(res, sim):
+    """Every scheduling-determined field, bit for bit."""
+    assert res["completion_order"] == [t.task.task_id for t in sim.tasks]
+    assert res["rejected_for_memory"] == sim.kv_rejected
+    assert res["budget_trace"] == sim.budget_trace
+    assert res["prefill_dispatches"] == sim.prefill_dispatches
+    assert res["prefill_dispatch_trace"] == sim.prefill_dispatch_trace
+    assert res["exec_cache_hits"] == sim.exec_cache_hits
+    assert res["exec_cache_misses"] == sim.exec_cache_misses
+    assert res["decode_dispatches"] == sim.decode_dispatches
+    assert res["decode_steps_executed"] == sim.decode_steps_executed
+    assert res["decode_dispatch_trace"] == sim.decode_dispatch_trace
+    assert res["kv_util_peak"] == sim.kv_util_peak
+    assert res["kv_util_mean"] == sim.kv_util_mean
+    assert res["peak_concurrency"] == sim.peak_concurrency
+    assert res["prefix_hit_rate"] == sim.prefix_hit_rate
+    assert res["cached_tokens_reused"] == sim.cached_tokens_reused
+    assert res["cow_copies"] == sim.cow_copies
+    assert res["prefix_evictions"] == sim.prefix_evictions
+
+
+def assert_kv(tlayers, jstate, cfg):
+    """bf16 caches (ring rows or page pools) that each framework filled
+    from float32 K/V: within two bf16 ulps, fewer than 10 % of entries
+    apart (ROADMAP Queue 3 entry 1: XLA and PyTorch sum the float32
+    projections in other orders, so a value at a rounding boundary can
+    round the other way)."""
+    for i in range(cfg.num_layers):
+        for kv in ("k", "v"):
+            a = tlayers[i][kv]
+            b = np.asarray(jstate["scan0"][kv][i])
+            diff = a.view(torch.int16).numpy() != b.view(np.int16)
+            assert diff.mean() < 0.1, (i, kv, int(diff.sum()))
+            np.testing.assert_allclose(a.float().numpy(),
+                                       b.astype(np.float32),
+                                       rtol=2.0 ** -6, atol=1e-3)
+
