@@ -36,28 +36,44 @@ Phases, in order; any failure exits non-zero:
      and the fused ``model.prefill_chunks``, final logits compared;
   4. engine — ``ServingEngine(mode="continuous", kv="paged",
      prefill="chunked", decode_steps=4)`` under the RT-LM policy serves 32
-     requests at full width; the kernels' launch counts are reset just
-     before and read just after.  The same serve runs once more under
-     ``torch.profiler`` for the device's busy time and the kernels' share
-     (the paged decode's split and combine kernels, the fused prefill);
+     requests at full width, eager (``generate.disable_graphs()``) and
+     then graphed (the engine's CUDA graphs, the default), each on a fresh
+     engine; the kernels' launch counts are reset just before each serve
+     and read just after (a wrapper counts where it launches on the host,
+     which a graph's replay does not run).  The same two serves run once
+     more under ``torch.profiler`` for the device's busy time, its idle
+     share and the kernels' share and number of runs, by name (the paged
+     decode's split and combine kernels, the fused prefill).  It fails
+     unless the graphed serve gives the eager one's tokens and schedule,
+     its profile ran each kernel as often as the eager one's and that as
+     often as the eager wrappers launched it, every decode window replayed
+     a graph, and the card idled a smaller share of the graphed serve;
   5. engine rows — the other valid rows of the configuration matrix at
      full width, each serving the same 16 requests whose 128-word prompts
      share their first 96 words (six 16-token blocks): ``mode="batch"``,
      continuous stall admission on the contiguous and on the paged cache,
      paged stall with ``prefix_cache=True``, and paged chunked with the
-     prefix cache persistent across two serves.  Per serve: wall time,
-     tokens/s, TTFT and ITL, iterations, the kernels' launches (counts
-     reset just before, read just after), prefix hits and copies-on-write,
-     and the free blocks after; each one-serve row once more under
-     ``torch.profiler`` (device busy time, idle share).  It fails unless
-     every request is done with its cap, no block leaked, the prefix rows
-     hit (the second persistent serve more than the first), every paged
-     row launched the paged decode and the prefix rows the fused prefill.
-     The share of requests with identical tokens across rows is printed,
-     not held (the kernel path is held to its plain path by tolerance).
+     prefix cache persistent across two serves; every row eager and then
+     graphed.  Per serve: wall time, tokens/s, TTFT and ITL, iterations,
+     the kernels' launches (counts reset just before, read just after),
+     prefix hits and copies-on-write, the free blocks after, and for a
+     graphed serve its graphs, replays, capture seconds and pool bytes
+     (its growth of ``memory_reserved`` less the eager serve's); each
+     one-serve row once more in each mode under ``torch.profiler`` (device
+     busy time, idle share, kernels by name).  It fails unless every
+     request is done with its cap, no block leaked, the prefix rows hit
+     (the second persistent serve more than the first), every eager paged
+     row launched the paged decode and the eager prefix rows the fused
+     prefill, and every graphed serve equals its eager twin (tokens,
+     schedule, hits, free blocks, and in a profiled row the kernels run,
+     as in phase 4).  The share of requests with identical
+     tokens across rows is printed, not held (the kernel path is held to
+     its plain path by tolerance).
 
-Then one JSON line of kernel results (each kernel's launches from the path
-that runs it: decode and ragged prefill from phase 4, chunked prefill from
+Every number of phases 4 and 5, tokens and traces included, also goes to
+``build/chip_smoke.json``.  Then one JSON line of kernel results
+(each kernel's launches from the path that runs it: decode and ragged
+prefill from phase 4's eager serve, chunked prefill from
 phase 3's single-chunk path, the other three from phase 2's ops path), the
 card line, and as the last line ``{"ok": true, "device": {...}}``.  Needs
 a CUDA card; imports nothing of JAX.
@@ -883,7 +899,9 @@ def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
     device time of its kernels (busy), the idle share, and the engine
     path's port kernels' device time and share of the busy time (the
     paged decode as its split and combine kernels and their sum
-    ``paged_decode``, the fused prefill).  "not measured" if
+    ``paged_decode``, the fused prefill) and how many times each ran
+    (``kernel_events``; the profiler names kernels inside CUDA graphs
+    too).  "not measured" if
     the profiler reports no device time.  ``warm`` calls ``fn`` once
     before; ``cpu=False`` records device activity only (a whole serve
     launches millions of operations)."""
@@ -902,7 +920,7 @@ def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
     # walk the raw device events: ``key_averages`` builds a Python object
     # per event, minutes for the millions of launches of a whole serve
     cuda = torch.autograd.DeviceType.CUDA
-    busy, ours = 0.0, {}
+    busy, ours, events = 0.0, {}, dict.fromkeys(PROFILE_TAGS, 0)
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cuda:
             continue
@@ -911,13 +929,14 @@ def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
         for tag in PROFILE_TAGS:
             if tag in e.name():
                 ours[tag] = ours.get(tag, 0.0) + t
+                events[tag] += 1
     ours["paged_decode"] = sum(ours.get(tag, 0.0) for tag in PROFILE_TAGS
                                if tag.startswith("paged_decode"))
     if busy <= 0.0:
         return {"wall_s": wall, "device_busy_s": "not measured"}
     return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "kernel_device_s": ours,
+            "kernel_device_s": ours, "kernel_events": events,
             "kernel_share_of_busy": {k: v / busy for k, v in ours.items()}}
 
 
@@ -943,40 +962,165 @@ def serving_inputs() -> dict:
             "profile_s": time.perf_counter() - t0}
 
 
+#: what must not change between an eager and a graphed serve of one engine
+#: row: the schedule (all requests arrive at t = 0, so the measured step
+#: times that advance the engine clock cannot reorder it)
+SCHEDULE_FIELDS = ("completion_order", "budget_trace", "prefill_dispatches",
+                   "prefill_dispatch_trace", "decode_dispatches",
+                   "decode_dispatch_trace", "exec_cache_hits",
+                   "exec_cache_misses", "rejected_for_memory", "cow_copies",
+                   "cached_tokens_reused")
+
+
+def timed_serve(torch, eng, requests, kmods, graphed: bool):
+    """One serve of ``eng``, eager (under ``generate.disable_graphs()``) or
+    graphed (the default), its kernels' launch counts reset just before
+    and read just after.  A wrapper counts where it launches on the host:
+    in a graphed serve that is its eager calls and captures, not its
+    replays (which ``kernel_events`` of a profiled serve count).  Returns
+    (result, wall s, launches, the growth of ``memory_reserved`` over the
+    serve, the allocator's free blocks released just before)."""
+    import contextlib
+    from repro_torch.serving.generate import disable_graphs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    for m in kmods:
+        m.launches = 0
+    with contextlib.nullcontext() if graphed else disable_graphs():
+        t0 = time.perf_counter()
+        res = eng.serve(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return (res, wall, {m.NAME: m.launches for m in kmods},
+            torch.cuda.memory_reserved() - reserved)
+
+
+def profiled_serve(torch, make_engine, requests, graphed: bool) -> dict:
+    """A fresh engine's serve under the profiler (device busy time, idle
+    share, the engine kernels' device time by name), eager or graphed."""
+    import contextlib
+    from repro_torch.serving.generate import disable_graphs
+
+    def serve():
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            make_engine().serve(requests())
+    return profile_window(torch, serve, warm=False, cpu=False)
+
+
+def graph_report(label: str, eng, res) -> dict:
+    """A graphed serve's executables: keys captured, replays, capture and
+    warm-up seconds.  Fails unless the window
+    key was captured and every decode window replayed, the stall rows'
+    admission and the prefix rows' copy-on-write were captured."""
+    stats = eng.graph_stats()
+    if eng.mode != "continuous":
+        return stats
+    if eng._window_key not in eng._window.aot:
+        fail(f"{label}: the decode window was not captured")
+    if stats["replays"]["window"] != res["decode_dispatches"]:
+        fail(f"{label}: {stats['replays']['window']} window replays for "
+             f"{res['decode_dispatches']} decode windows")
+    if eng.prefill == "stall" and eng._admit_key not in eng._admit.aot:
+        fail(f"{label}: the stall admission was not captured")
+    if eng.prefix_cache_enabled and eng._cow_key not in eng._cow.aot:
+        fail(f"{label}: the copy-on-write page copy was not captured")
+    return stats
+
+
+#: the device kernels one launch of an engine kernel module runs
+KERNEL_EVENTS = {"paged_decode_attention": ("paged_decode_split_kernel",
+                                            "paged_decode_combine_kernel"),
+                 "ragged_chunked_prefill": ("ragged_prefill_kernel",)}
+
+
+def same_serve(label: str, eager: dict, graphed: dict,
+               extra=()) -> None:
+    """A graphed serve must equal its eager twin: every request's tokens
+    and the schedule (SCHEDULE_FIELDS and ``extra``).  Where both were
+    profiled, the graphed serve's device kernels must be the eager one's
+    (counted by name; a replay adds nothing to the wrappers' counts), and
+    the eager serve's must be one per launch its wrappers counted.  Sets
+    the graphed serve's ``graphs["pool_bytes"]``: its growth of
+    ``memory_reserved`` less the eager serve's."""
+    for f in ("tokens",) + SCHEDULE_FIELDS + tuple(extra):
+        if eager[f] != graphed[f]:
+            fail(f"{label}: graphed {f} differs from eager: "
+                 f"{graphed[f]} vs {eager[f]}")
+    if "graphs" in graphed:
+        graphed["graphs"]["pool_bytes"] = (graphed["reserved_growth_bytes"]
+                                           - eager["reserved_growth_bytes"])
+    if "serve_profile" not in eager:
+        return
+    ev = [x["serve_profile"].get("kernel_events") for x in (eager, graphed)]
+    if None in ev:
+        fail(f"{label}: the profiler counted no device kernels")
+    for name, tags in KERNEL_EVENTS.items():
+        for tag in tags:
+            if ev[0][tag] != eager["launches"][name]:
+                fail(f"{label}: eager ran {tag} {ev[0][tag]} times for "
+                     f"{eager['launches'][name]} launches of {name}")
+            if ev[1][tag] != ev[0][tag]:
+                fail(f"{label}: graphed ran {tag} {ev[1][tag]} times, "
+                     f"eager {ev[0][tag]}")
+
+
 def run_engine(torch, cfg, params, kmods, inputs) -> dict:
+    """Phase 4's serve eager, then graphed, each on a fresh engine, then
+    the same two serves under the profiler (graphed first).  The graphed
+    serve must equal the eager one (``same_serve``: tokens, schedule, the
+    device kernels counted by name), replay every decode window, and
+    leave the card idle a smaller share of the serve."""
     from repro_torch.core import scheduler as sched
     from repro_torch.serving.engine import Request, ServingEngine
     persona, profile = inputs["persona"], inputs["profile"]
-    profile_s = inputs["profile_s"]
     tasks = inputs["test"][:N_REQUESTS]
 
-    def serve():
+    def engine():
         policy = sched.POLICIES["rt-lm"](persona, profile.policy_config())
-        eng = ServingEngine(
+        return ServingEngine(
             params, cfg, policy, profile, mode="continuous", kv="paged",
             prefill="chunked", decode_steps=DECODE_STEPS,
             num_slots=NUM_SLOTS, kv_block_size=BS,
             input_bucket=INPUT_BUCKET, chunk_size=CHUNK,
             max_new_tokens=MAX_NEW, eos_id=-1, device="cuda")
-        return eng.serve([Request(text=t.text, arrival=0.0, task_id=i,
-                                  max_new_tokens=t.out_lens["bart"])
-                          for i, t in enumerate(tasks)])
 
-    for m in kmods:
-        m.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = serve()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {m.NAME: m.launches for m in kmods}
+    def requests():
+        return [Request(text=t.text, arrival=0.0, task_id=i,
+                        max_new_tokens=t.out_lens["bart"])
+                for i, t in enumerate(tasks)]
 
-    if len(res["tasks"]) != N_REQUESTS:
-        fail(f"engine: {len(res['tasks'])} of {N_REQUESTS} requests done")
-    for name, n in launches.items():
+    out = {"profile_train_s": inputs["profile_s"]}
+    for mode in ("eager", "graphed"):
+        eng = engine()
+        res, wall, launches, grown = timed_serve(torch, eng, requests(),
+                                                 kmods, mode == "graphed")
+        out[mode] = engine_serve(cfg, res, wall, launches)
+        out[mode]["reserved_growth_bytes"] = grown
+        if mode == "graphed":
+            out[mode]["graphs"] = graph_report("engine", eng, res)
+    for mode in ("graphed", "eager"):
+        out[mode]["serve_profile"] = profiled_serve(
+            torch, engine, requests, mode == "graphed")
+    same_serve("engine", out["eager"], out["graphed"])
+    idle = [out[m]["serve_profile"].get("device_idle_share")
+            for m in ("eager", "graphed")]
+    if None in idle or not idle[1] < idle[0]:
+        fail(f"engine: graphed idle share {idle[1]} not below eager "
+             f"{idle[0]}")
+    for name, n in out["eager"]["launches"].items():
         if n <= 0:
             fail(f"engine: kernel {name} was never launched on the main "
                  "path")
+    return out
+
+
+def engine_serve(cfg, res, wall, launches) -> dict:
+    """Phase 4's numbers and checks of one serve: every request done with
+    its cap and ids in the vocabulary, at most one prefill launch an
+    iteration, N steps a window."""
+    if len(res["tasks"]) != N_REQUESTS:
+        fail(f"engine: {len(res['tasks'])} of {N_REQUESTS} requests done")
     if any(x > 1 for x in res["prefill_dispatch_trace"]):
         fail("engine: more than one prefill launch in an iteration")
     if res["decode_steps_executed"] != DECODE_STEPS * res["decode_dispatches"]:
@@ -995,25 +1139,18 @@ def run_engine(torch, cfg, params, kmods, inputs) -> dict:
     lanes = {"gpu": 0, "cpu": 0}
     for t in res["tasks"]:
         lanes[t.task.lane] += 1
-    # the same serve again, on a fresh engine, under the profiler: the
-    # device's busy time over the whole serve and the two kernels' share
-    # of it (the timed serve above runs without the profiler's overhead)
-    serve_profile = profile_window(torch, serve, warm=False, cpu=False)
     return {
         "launches": launches,
         "wall_s": wall,
-        "profile_train_s": profile_s,
         "generated_tokens": gen_tokens,
         "generated_tokens_per_s": gen_tokens / wall,
         "ttft_p50_s": res["ttft_p50"], "ttft_p99_s": res["ttft_p99"],
         "itl_p50_s": res["itl_p50"], "itl_p99_s": res["itl_p99"],
         "lanes": lanes,
-        "prefill_dispatches": res["prefill_dispatches"],
-        "decode_dispatches": res["decode_dispatches"],
         "iterations": len(res["budget_trace"]),
-        "rejected_for_memory": res["rejected_for_memory"],
         "peak_concurrency": res["peak_concurrency"],
-        "serve_profile": serve_profile,
+        "tokens": {t.task.task_id: t.task.out_tokens for t in res["tasks"]},
+        **{f: res[f] for f in SCHEDULE_FIELDS},
     }
 
 
@@ -1058,18 +1195,21 @@ def prefix_workload(test) -> list:
     return out
 
 
-def run_engine_rows(torch, cfg, params, kmods, inputs) -> dict:
+def run_engine_rows(torch, cfg, params, kmods, inputs, card: str) -> dict:
     """Each row of ENGINE_ROWS serves the same 16 shared-prefix requests
-    at full width (the persistent row twice, on one engine), its kernels'
-    launch counts reset just before each serve and read just after.  A
-    one-serve row then serves once more, on a fresh engine, under the
-    profiler (device busy time and idle share)."""
+    at full width (the persistent row twice, on one engine), eager and
+    then graphed, each on a fresh engine, its kernels' launch counts reset
+    just before each serve and read just after.  A one-serve row then
+    serves once more in each mode, on a fresh engine, under the profiler
+    (device busy time and idle share).  Every graphed serve must equal its
+    eager twin (``same_serve``, prefix hits and free blocks included, and
+    the device kernels counted by name where the row was profiled)."""
     from repro_torch.core import scheduler as sched
     from repro_torch.serving.engine import Request, ServingEngine
     persona, profile = inputs["persona"], inputs["profile"]
     work = prefix_workload(inputs["test"])
     caps = [max(1, min(c, MAX_NEW)) for _, c in work]
-    rows, tokens = {}, {}
+    rows = {}
 
     def engine(kw):
         policy = sched.POLICIES["rt-lm"](persona, profile.policy_config())
@@ -1078,46 +1218,49 @@ def run_engine_rows(torch, cfg, params, kmods, inputs) -> dict:
             kv_block_size=BS, input_bucket=INPUT_BUCKET,
             max_new_tokens=MAX_NEW, eos_id=-1, device="cuda", **kw)
 
-    def serve(eng):
-        return eng.serve([Request(text=text, arrival=0.0, task_id=i,
-                                  max_new_tokens=c)
-                          for i, (text, c) in enumerate(work)])
+    def requests():
+        return [Request(text=text, arrival=0.0, task_id=i,
+                        max_new_tokens=c)
+                for i, (text, c) in enumerate(work)]
 
     for name, kw in ENGINE_ROWS:
-        eng = engine(kw)
         serves = 2 if kw.get("persist_prefix_cache") else 1
-        for k in range(serves):
-            label = name if serves == 1 else f"{name}-{k + 1}"
-            for m in kmods:
-                m.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = serve(eng)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {m.NAME: m.launches for m in kmods}
-            rows[label] = row = engine_row(cfg, eng, res, caps, wall,
-                                           launches, label)
-            tokens[label] = {t.task.task_id: t.task.out_tokens
-                             for t in res["tasks"]}
-            if serves == 1:
-                row["serve_profile"] = profile_window(
-                    torch, lambda: serve(engine(kw)), warm=False, cpu=False)
-            print(f"engine row {label}: {json.dumps(row)}", flush=True)
-        if eng.prefix_cache is not None:
-            eng.prefix_cache.clear()
-        if eng.allocator is not None:
-            eng.allocator.check_no_leaks()
+        for mode in ("eager", "graphed"):
+            graphed = mode == "graphed"
+            eng = engine(kw)
+            for k in range(serves):
+                label = name if serves == 1 else f"{name}-{k + 1}"
+                res, wall, launches, grown = timed_serve(
+                    torch, eng, requests(), kmods, graphed)
+                row = engine_row(cfg, eng, res, caps, wall, launches, label,
+                                 graphed)
+                row["reserved_growth_bytes"] = grown
+                if graphed:
+                    row["graphs"] = graph_report(label, eng, res)
+                if serves == 1:
+                    row["serve_profile"] = profiled_serve(
+                        torch, lambda: engine(kw), requests, graphed)
+                rows.setdefault(label, {})[mode] = row
+                print(f"engine row {label} {mode} [{card}]: "
+                      f"{json.dumps(printable(row))}", flush=True)
+            if eng.prefix_cache is not None:
+                eng.prefix_cache.clear()
+            if eng.allocator is not None:
+                eng.allocator.check_no_leaks()
+    for label, pair in rows.items():
+        same_serve(f"engine row {label}", pair["eager"], pair["graphed"],
+                   ("prefix_hit_blocks", "free_blocks_after"))
 
     def same(a, b):
-        return sum(tokens[a][i] == tokens[b][i]
-                   for i in range(len(work))) / len(work)
+        ta, tb = rows[a]["graphed"]["tokens"], rows[b]["graphed"]["tokens"]
+        return sum(ta[i] == tb[i] for i in range(len(work))) / len(work)
 
     # a chunked serve admits all 16 requests before any prefill lands, so
     # the persistent row's first serve may find its cache empty
-    hits = [rows[f"{ENGINE_ROWS[-1][0]}-{k}"]["prefix_hit_blocks"]
+    hits = [rows[f"{ENGINE_ROWS[-1][0]}-{k}"]["graphed"]["prefix_hit_blocks"]
             for k in (1, 2)]
-    if rows["paged-stall-prefix"]["prefix_hit_blocks"] <= 0 or hits[1] <= 0:
+    if rows["paged-stall-prefix"]["graphed"]["prefix_hit_blocks"] <= 0 \
+            or hits[1] <= 0:
         fail("engine rows: a prefix row found no prefix hit")
     if not hits[1] > hits[0]:
         fail(f"engine rows: the persistent cache's second serve hit "
@@ -1128,11 +1271,13 @@ def run_engine_rows(torch, cfg, params, kmods, inputs) -> dict:
         "batch_vs_contiguous_stall": same("batch", "contiguous-stall")}}
 
 
-def engine_row(cfg, eng, res, caps, wall, launches, label) -> dict:
+def engine_row(cfg, eng, res, caps, wall, launches, label,
+               graphed: bool) -> dict:
     """One serve's numbers and checks: every request done with its cap,
     ids in the vocabulary, the pool back to its free blocks but the prefix
-    cache's pinned ones, the paged decode kernel on every paged row and
-    the fused prefill on the prefix rows."""
+    cache's pinned ones, the paged decode kernel launched on every paged
+    row and the fused prefill on the prefix rows (eager serves: a graphed
+    serve's replays are counted by ``same_serve`` from its profile)."""
     if len(res["tasks"]) != len(caps):
         fail(f"engine row {label}: {len(res['tasks'])} of {len(caps)} "
              "requests done")
@@ -1152,10 +1297,11 @@ def engine_row(cfg, eng, res, caps, wall, launches, label) -> dict:
         if free + pinned != eng.kv_num_blocks:
             fail(f"engine row {label}: {free} free + {pinned} cached of "
                  f"{eng.kv_num_blocks} blocks: a block leaked")
-        if launches["paged_decode_attention"] <= 0:
+        if not graphed and launches["paged_decode_attention"] <= 0:
             fail(f"engine row {label}: the paged decode kernel was never "
                  "launched")
-    if pc is not None and launches["ragged_chunked_prefill"] <= 0:
+    if not graphed and pc is not None \
+            and launches["ragged_chunked_prefill"] <= 0:
         fail(f"engine row {label}: the fused prefill kernel was never "
              "launched")
     if eng.mode == "batch":
@@ -1170,16 +1316,30 @@ def engine_row(cfg, eng, res, caps, wall, launches, label) -> dict:
         "ttft_p50_s": res["ttft_p50"], "ttft_p99_s": res["ttft_p99"],
         "itl_p50_s": res["itl_p50"], "itl_p99_s": res["itl_p99"],
         "iterations": iterations,
-        "prefill_dispatches": res["prefill_dispatches"],
-        "decode_dispatches": res["decode_dispatches"],
         "launches": launches,
         "prefix_hit_blocks": pc.hit_blocks if pc is not None else 0,
-        "cow_copies": res["cow_copies"],
         "free_blocks_after": free,
-        "rejected_for_memory": res["rejected_for_memory"],
         "peak_concurrency": res["peak_concurrency"],
         "prefill_stall_s": res["prefill_stall_s"],
+        "tokens": {t.task.task_id: t.task.out_tokens for t in res["tasks"]},
+        **{f: res[f] for f in SCHEDULE_FIELDS},
     }
+
+
+#: per-request and per-iteration lists, kept out of the printed lines (the
+#: whole record goes to build/chip_smoke.json)
+LONG_FIELDS = ("tokens", "completion_order", "budget_trace",
+               "prefill_dispatch_trace", "decode_dispatch_trace")
+
+
+def printable(row: dict) -> dict:
+    return {k: v for k, v in row.items() if k not in LONG_FIELDS}
+
+
+def save_record(record: dict) -> None:
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record))
 
 
 def main() -> int:
@@ -1247,17 +1407,25 @@ def main() -> int:
     # the engine's main path runs the decode and fused prefill kernels
     inputs = serving_inputs()
     eres = run_engine(torch, cfg, params, KERNELS[:2], inputs)
-    print(f"engine [{card}]: {json.dumps(eres)}", flush=True)
+    record = {"card": card, "engine": eres}
+    save_record(record)
+    for mode in ("eager", "graphed"):
+        print(f"engine {mode} [{card}]: "
+              f"{json.dumps(printable(eres[mode]))}", flush=True)
 
     # -- phase 5: the engine's other rows
-    rres = run_engine_rows(torch, cfg, params, KERNELS[:2], inputs)
+    rres = run_engine_rows(torch, cfg, params, KERNELS[:2], inputs, card)
+    record["engine_rows"] = rres
+    save_record(record)
     print(f"engine rows [{card}]: token identity "
           f"{json.dumps(rres['token_identity'])}", flush=True)
 
-    # each kernel's launches on the path that runs it
+    # each kernel's launches on the path that runs it, counted where its
+    # wrapper launches it: the eager serve (the graphed one ran the same
+    # kernels, counted by name in its profile)
     path_launches = {
-        "paged_decode_attention": eres["launches"],
-        "ragged_chunked_prefill": eres["launches"],
+        "paged_decode_attention": eres["eager"]["launches"],
+        "ragged_chunked_prefill": eres["eager"]["launches"],
         "chunked_prefill_attention": sres["launches"],
     }
     kernels = []

@@ -164,7 +164,9 @@ def current_stream(device) -> int:
     """The raw handle of ``device``'s current CUDA stream: what
     ``torch.cuda.current_stream(device).cuda_stream`` returns, without
     building a Stream object for every launch (the decode loop is
-    host-bound, one launch per layer and step)."""
+    host-bound, one launch per layer and step).  Under a CUDA-graph
+    capture it is the capture stream, which ``torch.cuda.graph`` makes
+    current, so a launch is recorded into the graph."""
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()

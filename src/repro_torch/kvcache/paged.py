@@ -90,11 +90,24 @@ def scatter_packed(pages: torch.Tensor, seq: torch.Tensor,
     _flat(pages)[flat_idx[valid]] = seq[valid].to(pages.dtype)
 
 
+def as_index(i, device) -> torch.Tensor:
+    """A (1,) int64 index on ``device`` from an int, or from a 0-d or
+    1-element int tensor, which stays on its device: an index the engine
+    hands a CUDA graph is read by the graph's kernels, never by the host
+    (``int()`` of a device tensor synchronises, which a capture
+    forbids)."""
+    if isinstance(i, torch.Tensor):
+        return i.reshape(1).long()
+    return torch.full((1,), int(i), dtype=torch.long, device=device)
+
+
 def copy_block(pages: torch.Tensor, src, dst) -> None:
     """Copy one physical page in place: ``pages[dst] = pages[src]`` (the
     prefix cache's copy-on-write of a fully matched prompt's last
-    block)."""
-    pages[int(dst)] = pages[int(src)]
+    block).  ``src``/``dst``: ints or 1-element int tensors
+    (``as_index``)."""
+    src, dst = (as_index(b, pages.device) for b in (src, dst))
+    pages.index_copy_(0, dst, pages.index_select(0, src))
 
 
 def scatter_prefill(pages: torch.Tensor, seq: torch.Tensor,

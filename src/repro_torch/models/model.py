@@ -15,7 +15,9 @@ Caches are updated IN PLACE (the reference returns new caches); each
 function returns only its outputs.  ``decode_steps`` and
 ``decode_steps_paged`` replace the reference's ``lax.scan`` with a Python
 loop whose tokens stay on the device, so a window costs no host round
-trip.
+trip.  The functions the engine captures in CUDA graphs (both decode
+windows, both stall admissions, ``prefill_chunks``) read no device value
+on the host: slot indices may be 1-element device tensors.
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, max_len: int,
                                 {"positions": positions}, cfg, cache,
                                 "prefill")
     last_logits = _final_logits(params, cfg, x[:, -1:])[:, 0]
-    cache["pos"] = torch.tensor(S, dtype=torch.int32, device=tokens.device)
+    # a fill, not a host-to-device copy of a Python int: a CUDA graph
+    # captures this function (the engine's stall admission)
+    cache["pos"] = torch.full((), S, dtype=torch.int32, device=tokens.device)
     cache["slot_pos"] = transformer.prefill_slot_pos(max_len, S,
                                                      tokens.device)
     return cache, last_logits
@@ -100,12 +104,13 @@ def decode_steps(params: dict, cfg, cache: dict, token: torch.Tensor, *,
 
 @torch.no_grad()
 def prefill_into_slot(params: dict, cfg, cache: dict, tokens: torch.Tensor,
-                      slot: int, max_len: int,
+                      slot, max_len: int,
                       cache_dtype=torch.bfloat16) -> torch.Tensor:
     """Prefill ONE (1, S) prompt and write its ring into row ``slot`` of a
     per-slot cache (``transformer.init_slot_cache`` with the same
-    ``max_len``), replacing the evicted row, in place.  Returns
-    last_logits (V,) f32."""
+    ``max_len``), replacing the evicted row, in place.  ``slot``: an int or
+    a 1-element int tensor on the cache's device.  Returns last_logits
+    (V,) f32."""
     one, last_logits = prefill(params, cfg, tokens, max_len, cache_dtype)
     transformer.write_slot(cache, one, slot)
     return last_logits[0]
@@ -113,10 +118,11 @@ def prefill_into_slot(params: dict, cfg, cache: dict, tokens: torch.Tensor,
 
 @torch.no_grad()
 def prefill_into_paged(params: dict, cfg, cache: dict, tokens: torch.Tensor,
-                       slot: int, table_row: torch.Tensor, max_len: int,
+                       slot, table_row: torch.Tensor, max_len: int,
                        cache_dtype=torch.bfloat16) -> torch.Tensor:
     """Prefill ONE (1, S) prompt and scatter its K/V into the pages of
-    ``table_row`` (nb,), setting ``pos[slot] = S``, in place.  Returns
+    ``table_row`` (nb,), setting ``pos[slot] = S``, in place.  ``slot``: an
+    int or a 1-element int tensor on the cache's device.  Returns
     last_logits (V,) f32."""
     one, last_logits = prefill(params, cfg, tokens, max_len, cache_dtype)
     transformer.write_paged(cache, one, slot, table_row, tokens.shape[1])

@@ -146,17 +146,21 @@ def init_slot_cache(cfg, num_slots: int, max_len: int,
     return cache
 
 
-def write_slot(cache: dict, one: dict, slot: int) -> None:
+def write_slot(cache: dict, one: dict, slot) -> None:
     """Write a freshly prefilled single-sequence ring cache (batch 1,
     scalar ``pos``, (W,) ``slot_pos``: what ``model.prefill`` returns for
     a (1, S) prompt) into row ``slot`` of a per-slot cache, in place.
     Every K/V row and the ``slot_pos`` row of the slot are replaced, so
-    nothing of an evicted sequence survives."""
+    nothing of an evicted sequence survives.  ``slot``: an int or a
+    1-element int tensor on the cache's device (``paged.as_index``)."""
+    idx = paged_lib.as_index(slot, cache["pos"].device)
     for lc, lo in zip(cache["layers"], one["layers"]):
-        lc["k"][slot] = lo["k"][0].to(lc["k"].dtype)
-        lc["v"][slot] = lo["v"][0].to(lc["v"].dtype)
-    cache["pos"][slot] = one["pos"].to(cache["pos"].dtype)
-    cache["slot_pos"][slot] = one["slot_pos"]
+        lc["k"].index_copy_(0, idx, lo["k"].to(lc["k"].dtype))
+        lc["v"].index_copy_(0, idx, lo["v"].to(lc["v"].dtype))
+    cache["pos"].index_copy_(0, idx,
+                             one["pos"].reshape(1).to(cache["pos"].dtype))
+    cache["slot_pos"].index_copy_(
+        0, idx, one["slot_pos"][None].to(cache["slot_pos"].dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -193,20 +197,23 @@ def init_paged_cache(cfg, num_slots: int, num_blocks: int, block_size: int,
                                device=device)}
 
 
-def write_paged(cache: dict, one: dict, slot: int, table_row: torch.Tensor,
+def write_paged(cache: dict, one: dict, slot, table_row: torch.Tensor,
                 seq_len: int) -> None:
     """Scatter a freshly prefilled single-sequence ring cache (batch 1,
     positions 0..S-1 at rows 0..S-1) into the page pools at the blocks
-    of ``table_row`` (nb,) and set ``pos[slot] = seq_len``, in place."""
+    of ``table_row`` (nb,) and set ``pos[slot] = seq_len``, in place.
+    ``slot``: an int or a 1-element int tensor (``paged.as_index``)."""
     for lc, lo in zip(cache["layers"], one["layers"]):
         paged_lib.scatter_prefill(lc["k"], lo["k"][0], table_row, seq_len)
         paged_lib.scatter_prefill(lc["v"], lo["v"][0], table_row, seq_len)
-    cache["pos"][slot] = seq_len
+    cache["pos"].index_fill_(
+        0, paged_lib.as_index(slot, cache["pos"].device), seq_len)
 
 
 def copy_paged_block(cache: dict, src, dst) -> None:
     """Copy-on-write page copy: physical block ``src`` into ``dst`` in
-    every layer's K/V pools, in place."""
+    every layer's K/V pools, in place.  ``src``/``dst``: ints or
+    1-element int tensors (``paged.as_index``)."""
     for lc in cache["layers"]:
         paged_lib.copy_block(lc["k"], src, dst)
         paged_lib.copy_block(lc["v"], src, dst)

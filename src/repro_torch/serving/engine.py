@@ -35,6 +35,15 @@ fused launch's shape-key counters (``exec_cache_hits``/``misses``), KV
 utilization samples, ``rejected_for_memory`` and the prefix-cache
 counters.  Caches live on the device and are updated in place.
 
+Every device step of the continuous loops (the decode window, the stall
+admission, the copy-on-write page copy and the fused ragged prefill)
+dispatches through a ``generate.GraphExecutable``, the counterpart of the
+reference's ``JitExecutable``: on the card each shape key replays a CUDA
+graph, captured at serve start (``aot_warmup=True``, the reference's
+``_aot_warm``) or on its first call.  Under ``generate.disable_graphs()``
+and on the CPU every step runs eagerly.  Batch mode and the bulk lane
+(``generate.generate``) run eagerly.
+
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
 item: fault plans (``faults``, ``serve(step_offset=)``), observability
 (``obs``) and non-dense model families.
@@ -114,6 +123,12 @@ class Request:
         return self.finish - self.arrival
 
 
+def _index(i: int) -> np.ndarray:
+    """A slot or block id as an executable's (1,) input: it reaches the
+    model functions as a device tensor, read by the device only."""
+    return np.array([i], np.int32)
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP {item})")
@@ -129,6 +144,10 @@ class ServingEngine:
     on ``device``; ``device=None`` means the card and raises when none is
     present.  On the card the paged attention layers run the CUDA kernels;
     on the CPU they run the reference's plain path (``use_pallas=False``).
+    ``aot_warmup=True`` captures the continuous loops' CUDA graphs at
+    serve start (``_aot_warm``); with False each key is captured at its
+    first call.  Either way the card replays graphs unless the serve runs
+    under ``generate.disable_graphs()``.
     """
 
     def __init__(self, params, cfg, policy: sched_lib.Policy,
@@ -144,6 +163,7 @@ class ServingEngine:
                  token_budget: Optional[int] = None,
                  prefix_cache: bool = False,
                  decode_steps: int = 1,
+                 aot_warmup: bool = True,
                  persist_prefix_cache: bool = False,
                  faults=None, obs=None, device=None):
         self.device = resolve_device(device)
@@ -237,6 +257,28 @@ class ServingEngine:
         # (b * C for UASCHED, C otherwise), padded rows capped at 1 token
         self.batch_capacity = policy.max_batch()
         self.prefix_cache_enabled = prefix_cache
+        # the continuous loops' executables and their shape keys (the
+        # reference's, engine.py:330-334); their graphs belong to one
+        # cache (``_bind_graphs``)
+        self.aot_warmup = aot_warmup
+        self._aot_dims = (self.num_slots, self.input_bucket, self.max_len,
+                          self.kv, self.kv_num_blocks, self.kv_block_size)
+        self._window_key = ("window", self._aot_dims, self.decode_steps)
+        self._admit_key = ("admit", self._aot_dims)
+        self._cow_key = ("cow", self._aot_dims)
+        paged = kv == "paged"
+        self._window = generate.GraphExecutable(
+            model_lib.decode_steps_paged if paged else model_lib.decode_steps,
+            "window", self.device)
+        self._admit = generate.GraphExecutable(
+            model_lib.prefill_into_paged if paged
+            else model_lib.prefill_into_slot, "admit", self.device)
+        self._cow = generate.GraphExecutable(transformer.copy_paged_block,
+                                             "cow", self.device)
+        self._ragged = generate.GraphExecutable(model_lib.prefill_chunks,
+                                                "ragged", self.device)
+        self._graph_cache: Optional[dict] = None
+        self.graph_warm_s = 0.0
         self.scheduler_overhead_s = 0.0
         # per-slot ring cache after the last contiguous continuous serve,
         # and the admission audit trail
@@ -430,6 +472,7 @@ class ServingEngine:
                         "chunk_size": self.chunk_size,
                         "token_budget": self.token_budget},
             "pipeline": {"decode_steps": self.decode_steps,
+                         "aot_warmup": self.aot_warmup,
                          "persist_prefix_cache": self.persist_prefix_cache,
                          "use_kernels": self.use_kernels},
             "device": str(self.device),
@@ -570,6 +613,94 @@ class ServingEngine:
             self.prefix_cache = pc
         return kvc, alloc, pc
 
+    def _executables(self) -> Dict[str, generate.GraphExecutable]:
+        return {"window": self._window, "admit": self._admit,
+                "cow": self._cow, "ragged": self._ragged}
+
+    def _ragged_key(self, shape_key: tuple) -> tuple:
+        return ("ragged", self._aot_dims, shape_key)
+
+    def _bind_graphs(self, cache: dict, kvc=None) -> None:
+        """Hand the serve's cache to the executables, then warm them.
+        Their graphs read its storage: a new cache object drops every
+        graph (and their pool) and the warm-up captures anew; the same
+        cache (``persist_prefix_cache``) keeps its graphs across serves.
+        The executables' counters restart with every serve."""
+        fresh = cache is not self._graph_cache
+        pool = (torch.cuda.graph_pool_handle()
+                if fresh and self._window.captures() else None)
+        for ex in self._executables().values():
+            if fresh:
+                ex.reset(pool)
+            ex.replays, ex.capture_s = 0, 0.0
+        self._graph_cache = cache
+        self._aot_warm(cache, kvc)
+
+    def _aot_warm(self, cache: dict, kvc=None) -> None:
+        """Capture the continuous loops' graphs at serve start, the
+        reference's ``_aot_warm`` (engine.py:893-963): the N-step decode
+        window, the stall admission, the copy-on-write page copy (prefix
+        cache) and the fused ragged keys a serve opens with -- every
+        reachable uncached-suffix length of a stall serve with the prefix
+        cache (matches are block-quantized, plus the one-token recompute
+        of a full match), ``{min(chunk, S), S}`` of a chunked one.  Other
+        ragged keys are captured on their first call.  Records the
+        warm-up's seconds (``graph_warm_s``).  A capture that fails
+        raises."""
+        self.graph_warm_s = 0.0
+        if not self.aot_warmup or not self._window.captures():
+            return
+        C, S, n = self.num_slots, self.input_bucket, self.decode_steps
+        p, cfg = self.params, self.cfg
+
+        def z(*shape):              # example inputs: only shapes are read
+            return np.zeros(shape, np.int32)
+
+        t0 = time.perf_counter()
+        if self.kv == "paged":
+            nb = kvc.max_blocks_per_seq
+            self._window.warm(self._window_key, (p, cfg, cache, z(C, 1),
+                                                 z(C, nb)),
+                              {"num_steps": n,
+                               "use_kernels": self.use_kernels})
+            if self.prefill == "stall":
+                self._admit.warm(self._admit_key,
+                                 (p, cfg, cache, z(1, S), z(1), z(nb)),
+                                 {"max_len": self.max_len})
+            lens: set = set()
+            if self.prefix_cache_enabled:
+                self._cow.warm(self._cow_key, (cache, z(1), z(1)))
+                if self.prefill == "stall":
+                    bs = self.kv_block_size
+                    lens |= {S - k * bs for k in range(1, S // bs + 1)
+                             if S - k * bs > 0} | {1}
+            if self.prefill == "chunked":
+                lens |= {min(self.chunk_size, S), S}
+            for L in sorted(lens):
+                key = suffix_shape_key(L)
+                TTp, Cp, Tp = key
+                self._ragged.warm(self._ragged_key(key),
+                                  (p, cfg, cache, z(1, TTp), z(TTp),
+                                   z(Cp, 4), z(Cp, nb)),
+                                  {"chunk_pad": Tp,
+                                   "use_kernels": self.use_kernels})
+        else:
+            self._window.warm(self._window_key, (p, cfg, cache, z(C, 1)),
+                              {"num_steps": n})
+            self._admit.warm(self._admit_key, (p, cfg, cache, z(1, S), z(1)),
+                             {"max_len": self.max_len})
+        self.graph_warm_s = time.perf_counter() - t0
+
+    def graph_stats(self) -> Dict:
+        """The last continuous serve's graphs per executable (the keys
+        captured), their replays, the seconds spent capturing (warm-up and
+        first calls), and the warm-up's seconds."""
+        ex = self._executables()
+        return {"graphs": {k: len(e.aot) for k, e in ex.items()},
+                "replays": {k: e.replays for k, e in ex.items()},
+                "capture_s": sum(e.capture_s for e in ex.values()),
+                "warm_s": self.graph_warm_s}
+
     def _exec_key_seen(self, key: tuple) -> None:
         """Count a fused prefill launch's padded shape key as an
         executable-cache hit or miss (the reference's jit memo, mirrored
@@ -590,11 +721,12 @@ class ServingEngine:
         plan = pc.admit(tid, toks)
         kvc.set_table(slot, alloc.table(tid))
         for src, dst in plan.cow:
-            transformer.copy_paged_block(cache, src, dst)
+            self._cow.call_aot(self._cow_key, cache, _index(src),
+                               _index(dst))
         if plan.start == 0:
-            last_logits = model_lib.prefill_into_paged(
-                self.params, self.cfg, cache, self._to_device(toks[None]),
-                slot, kvc.table_row(slot), self.max_len)
+            last_logits = self._admit.call_aot(
+                self._admit_key, self.params, self.cfg, cache, toks[None],
+                _index(slot), kvc.tables[slot], max_len=self.max_len)
         else:
             # the uncached suffix as a single-chunk fused launch
             key = suffix_shape_key(S - plan.start)
@@ -605,10 +737,9 @@ class ServingEngine:
                 pad_slot=self.num_slots,
                 table_width=kvc.max_blocks_per_seq,
                 trash_block=kvc.trash_block)
-            last_logits = model_lib.prefill_chunks(
-                self.params, self.cfg, cache, self._to_device(tokens_arr),
-                self._to_device(token_chunk), self._to_device(meta),
-                self._to_device(tabs), chunk_pad=key[2],
+            last_logits = self._ragged.call_aot(
+                self._ragged_key(key), self.params, self.cfg, cache,
+                tokens_arr, token_chunk, meta, tabs, chunk_pad=key[2],
                 use_kernels=self.use_kernels)[0]
         pc.commit(tid, toks)
         return last_logits
@@ -638,6 +769,7 @@ class ServingEngine:
         else:
             cache = transformer.init_slot_cache(self.cfg, C, self.max_len,
                                                 device=self.device)
+        self._bind_graphs(cache, kvc)
         slot_task: List[Optional[prio.SimTask]] = [None] * C
         slot_gen = [0] * C
         slot_cap = [0] * C
@@ -691,14 +823,14 @@ class ServingEngine:
                 elif paged:
                     kvc.set_table(slot, alloc.allocate_n(
                         tid, alloc.blocks_for(S)))
-                    last_logits = model_lib.prefill_into_paged(
-                        self.params, self.cfg, cache,
-                        self._to_device(toks[None]), slot,
-                        kvc.table_row(slot), self.max_len)
+                    last_logits = self._admit.call_aot(
+                        self._admit_key, self.params, self.cfg, cache,
+                        toks[None], _index(slot), kvc.tables[slot],
+                        max_len=self.max_len)
                 else:
-                    last_logits = model_lib.prefill_into_slot(
-                        self.params, self.cfg, cache,
-                        self._to_device(toks[None]), slot, self.max_len)
+                    last_logits = self._admit.call_aot(
+                        self._admit_key, self.params, self.cfg, cache,
+                        toks[None], _index(slot), max_len=self.max_len)
                 first = int(torch.argmax(last_logits))
                 dt = time.perf_counter() - t0
                 now += dt
@@ -742,14 +874,14 @@ class ServingEngine:
                 if paged:
                     self._extend_block_tables(active, slot_task, slot_gen,
                                               slot_cap, alloc, kvc, nsteps)
-                    window_tok = model_lib.decode_steps_paged(
-                        self.params, self.cfg, cache,
-                        self._to_device(tokens), kvc.tables_device(),
-                        num_steps=nsteps, use_kernels=self.use_kernels)
+                    window_tok = self._window.call_aot(
+                        self._window_key, self.params, self.cfg, cache,
+                        tokens, kvc.tables, num_steps=nsteps,
+                        use_kernels=self.use_kernels)
                 else:
-                    window_tok = model_lib.decode_steps(
-                        self.params, self.cfg, cache,
-                        self._to_device(tokens), num_steps=nsteps)
+                    window_tok = self._window.call_aot(
+                        self._window_key, self.params, self.cfg, cache,
+                        tokens, num_steps=nsteps)
                 self._worker.submit(window_tok, t0)
                 window_host, dt = self._worker.collect()
                 now += dt
@@ -799,6 +931,7 @@ class ServingEngine:
         done: List[prio.SimTask] = []
         kvc, alloc, pc = self._paged_setup()
         cache = kvc.state
+        self._bind_graphs(cache, kvc)
         reserved = [0] * C           # per-slot worst-case block holdback
         sched = ChunkScheduler(self.chunk_size, self.token_budget)
         slot_task: List[Optional[prio.SimTask]] = [None] * C  # decoding
@@ -856,7 +989,8 @@ class ServingEngine:
                     plan = pc.admit(task.task.task_id, toks)
                     start = plan.start
                     for src, dst in plan.cow:
-                        transformer.copy_paged_block(cache, src, dst)
+                        self._cow.call_aot(self._cow_key, cache,
+                                           _index(src), _index(dst))
                 else:
                     alloc.allocate_n(task.task.task_id, alloc.blocks_for(S))
                 row = np.full((kvc.max_blocks_per_seq,), kvc.trash_block,
@@ -896,11 +1030,9 @@ class ServingEngine:
                     trash_block=kvc.trash_block)
                 stalled = any(t is not None for t in slot_task)
                 t0 = time.perf_counter()
-                last_logits = model_lib.prefill_chunks(
-                    self.params, self.cfg, cache,
-                    self._to_device(tokens_arr),
-                    self._to_device(token_chunk), self._to_device(meta),
-                    self._to_device(tabs),
+                last_logits = self._ragged.call_aot(
+                    self._ragged_key(key), self.params, self.cfg, cache,
+                    tokens_arr, token_chunk, meta, tabs,
                     chunk_pad=batch_plan.padded_chunk_len,
                     use_kernels=self.use_kernels)
                 # greedy pick on the device: only (Cp,) ids cross to host
@@ -955,9 +1087,9 @@ class ServingEngine:
                 t0 = time.perf_counter()
                 self._extend_block_tables(active, slot_task, slot_gen,
                                           slot_cap, alloc, kvc, nsteps)
-                window_tok = model_lib.decode_steps_paged(
-                    self.params, self.cfg, cache, self._to_device(tokens),
-                    kvc.tables_device(), num_steps=nsteps,
+                window_tok = self._window.call_aot(
+                    self._window_key, self.params, self.cfg, cache, tokens,
+                    kvc.tables, num_steps=nsteps,
                     use_kernels=self.use_kernels)
                 self._worker.submit(window_tok, t0)
                 window_host, dt = self._worker.collect()

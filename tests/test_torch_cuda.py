@@ -1,4 +1,5 @@
-"""PyTorch port: the CUDA kernels against their plain versions, on the card.
+"""PyTorch port: the CUDA kernels against their plain versions, on the card,
+and the continuous engine's CUDA graphs against eager dispatch.
 
 Needs a CUDA card (and ``nvcc`` to build the kernels); every test carries
 the ``cuda`` marker and skips with a reason elsewhere.  The file imports
@@ -7,6 +8,7 @@ only ``torch`` and the port, so it runs where JAX is not installed:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -498,3 +500,278 @@ def test_cuda_model_prefill_chunk_goes_through_the_kernel(cuda):
         assert int(cache["pos"][1]) == 12
     scale = float(logits[False].abs().max())
     assert float((logits[True] - logits[False]).abs().max()) <= 0.05 * scale
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the continuous engine's executables against eager dispatch
+# ---------------------------------------------------------------------------
+
+GC, GBS, GNB, GW, GS = 3, 4, 6, 24, 8      # slots, block, table, ring, prompt
+
+
+def _smoke_model(cuda, head_dim=None):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import model as model_lib
+    cfg = configs.get_smoke_config("starcoder2-3b")
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    return cfg, model_lib.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
+
+
+def _bits(tree):
+    """Every tensor of a cache as raw bits, in order."""
+    if isinstance(tree, dict):
+        return [b for k in sorted(tree) for b in _bits(tree[k])]
+    if isinstance(tree, list):
+        return [b for v in tree for b in _bits(v)]
+    return [tree.view(torch.int16) if tree.dtype == torch.bfloat16
+            else tree]
+
+
+def _graph_case(name, cfg, cuda):
+    """(fn, cache, inputs(step) -> host arrays, static kwargs) of one of
+    the engine's executables at a small size, the cache filled with
+    random K/V and live positions so that every step reads real state."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.prefill import build_packed_arrays
+    np_rng = np.random.default_rng(7)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    N = GC * GNB + 1
+    if name in ("window ring", "admit ring"):
+        cache = transformer.init_slot_cache(cfg, GC, GW, device=cuda)
+        cache["pos"].copy_(torch.tensor([5, 9, 2], dtype=torch.int32))
+        for s, p in enumerate((5, 9, 2)):
+            cache["slot_pos"][s, :p] = torch.arange(p, dtype=torch.int32)
+    else:
+        cache = transformer.init_paged_cache(cfg, GC, N, GBS, device=cuda)
+        cache["pos"].copy_(torch.tensor([5, 9, 2], dtype=torch.int32))
+    for lc in cache["layers"]:
+        for t in lc.values():
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+    tables = np_rng.permutation(N - 1)[:GC * GNB].reshape(
+        GC, GNB).astype(np.int32)
+
+    def toks(*shape):
+        return np_rng.integers(2, cfg.vocab_size, shape).astype(np.int32)
+
+    if name == "window paged":
+        return (model_lib.decode_steps_paged, cache,
+                lambda step: (toks(GC, 1), tables),
+                {"num_steps": 2, "use_kernels": True})
+    if name == "window ring":
+        return (model_lib.decode_steps, cache, lambda step: (toks(GC, 1),),
+                {"num_steps": 2})
+    if name == "admit paged":
+        return (model_lib.prefill_into_paged, cache,
+                lambda step: (toks(1, GS), np.array([step % GC], np.int32),
+                              tables[(step + 1) % GC]),
+                {"max_len": GW})
+    if name == "admit ring":
+        return (model_lib.prefill_into_slot, cache,
+                lambda step: (toks(1, GS), np.array([step % GC], np.int32)),
+                {"max_len": GW})
+    if name == "cow":
+        return (transformer.copy_paged_block, cache,
+                lambda step: (np.array([step + 3], np.int32),
+                              np.array([2 * step + 10], np.int32)), {})
+    # ragged: key (8, 2, 4) with other chunks at every step
+    plans = [[(0, 0, 4), (1, 0, 4)], [(0, 4, 3)], [(2, 0, 2), (0, 7, 1)]]
+
+    def ragged(step):
+        entries = [(s, ctx, toks(ln), tables[s])
+                   for s, ctx, ln in plans[step % len(plans)]]
+        return build_packed_arrays((8, 2, 4), entries, pad_slot=GC,
+                                   table_width=GNB, trash_block=N - 1)
+
+    return (model_lib.prefill_chunks, cache, ragged,
+            {"chunk_pad": 4, "use_kernels": True})
+
+
+#: (executable, head dim): the smoke model's 32, and 128 for the kernels,
+#: whose shared memory at 128 is above 48 KB (a function attribute set
+#: at every launch, inside the capture too)
+#: the device kernels each engine kernel module's launch runs, once each
+KERNEL_EVENTS = {tpfd: ("paged_decode_split_kernel",
+                        "paged_decode_combine_kernel"),
+                 trcp: ("ragged_prefill_kernel",)}
+
+
+def _kernel_events(fn):
+    """Run ``fn`` under the profiler; the engine kernels' device events by
+    name (the profiler names kernels inside a graph too), and fn's value."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    tags = [t for ts in KERNEL_EVENTS.values() for t in ts]
+    return {t: sum(t in n for n in names) for t in tags}, out
+
+
+def _launch_counts():
+    return {m: m.launches for m in KERNEL_EVENTS}
+
+
+def _events_are_launches(events, launches):
+    """Each module's device kernels ran once per launch its wrapper
+    counted."""
+    for m, tags in KERNEL_EVENTS.items():
+        for t in tags:
+            assert events[t] == launches[m], (t, events[t], launches[m])
+
+
+GRAPH_CASES = [(n, 32) for n in ("window paged", "window ring",
+                                  "admit paged", "admit ring", "cow",
+                                  "ragged")] + [("window paged", 128),
+                                                ("ragged", 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,head_dim", GRAPH_CASES)
+def test_cuda_graphed_executable_equals_eager(cuda, name, head_dim):
+    """Each executable warmed (captured), then replayed three times with
+    other inputs each time, against the same function run eagerly on a
+    copy of the cache: outputs and every cache tensor (pages or rings,
+    ``pos``, ``slot_pos``) equal bit for bit after every call, and the
+    profiler sees a replay run the kernels that eager dispatch launches
+    (each once per launch the wrappers count).  A replay runs no Python,
+    so it adds nothing to the wrappers' counts."""
+    from repro_torch.serving.generate import GraphExecutable
+    cfg, params = _smoke_model(cuda, head_dim)
+    fn, cache, inputs, kw = _graph_case(name, cfg, cuda)
+    eager = _clone(cache)
+    bound = (cache,) if name == "cow" else (params, cfg, cache)
+    bound_e = (eager,) if name == "cow" else (params, cfg, eager)
+    ex = GraphExecutable(fn, name, cuda)
+    ex.warm("k", bound + inputs(0), kw)
+    assert list(ex.aot) == ["k"] and ex.capture_s > 0
+    for step in range(3):
+        args = inputs(step)
+        before = _launch_counts()
+        graphed, out = _kernel_events(
+            lambda: ex.call_aot("k", *bound, *args, **kw))
+        assert _launch_counts() == before
+        want_ev, want = _kernel_events(
+            lambda: fn(*bound_e, *(torch.from_numpy(a).to(cuda)
+                                   for a in args), **kw))
+        launches = {m: n - before[m] for m, n in _launch_counts().items()}
+        _events_are_launches(want_ev, launches)
+        assert graphed == want_ev
+        assert ex.replays == step + 1
+        if want is not None:
+            assert torch.equal(out, want)
+        for a, b in zip(_bits(cache), _bits(eager)):
+            assert torch.equal(a, b)
+    if name in ("window paged", "ragged"):
+        assert sum(launches.values()) == (cfg.num_layers
+                                          * kw.get("num_steps", 1))
+
+
+def _engine_setup(cuda):
+    import dataclasses
+    from repro_torch.core import datagen, personas
+    from repro_torch.core import scheduler as sched
+    persona = dataclasses.replace(personas.get_persona("bart"),
+                                  batch_size=GC)
+    corpus = datagen.generate_corpus(datagen.VARIANCE_MIXES["normal"], 48,
+                                     seed=0)
+    train, test = datagen.train_test_split(corpus, train_frac=0.5)
+    profile = sched.offline_profile(train, persona, epochs=2, device=cuda)
+    shared = " ".join(test[0].text.split()[:8])
+    texts = [f"{shared} {t.text}" for t in test[:8]]
+    return persona, profile, texts
+
+
+@pytest.mark.cuda
+def test_cuda_engine_graphs_rewarm_per_cache_and_match_eager(cuda):
+    """Paged stall with the prefix cache, graphed and eager: the same
+    tokens, scheduling fields and device kernels (counted by name under
+    the profiler; eager's equal to its wrappers' counts).  A second serve
+    builds
+    a new cache, so the executables drop their graphs and capture again
+    against it; with ``persist_prefix_cache`` the cache and its graphs
+    live on and the second serve captures nothing."""
+    from repro_torch.core import scheduler as sched
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.generate import disable_graphs
+    cfg, params = _smoke_model(cuda)
+    persona, profile, texts = _engine_setup(cuda)
+    caps = [2, 5, 3, 6, 1, 4, 6, 2]
+
+    def engine(**kw):
+        return ServingEngine(
+            params, cfg, sched.POLICIES["rt-lm"](
+                persona, profile.policy_config()), profile,
+            mode="continuous", kv="paged", prefill="stall",
+            prefix_cache=True, num_slots=GC, kv_block_size=GBS,
+            input_bucket=16, max_new_tokens=6, decode_steps=2, eos_id=-1,
+            device=cuda, **kw)
+
+    def serve(eng):
+        before = _launch_counts()
+        events, res = _kernel_events(lambda: eng.serve(
+            [Request(text=t, arrival=0.0, task_id=i, max_new_tokens=c)
+             for i, (t, c) in enumerate(zip(texts, caps))]))
+        res["launches"] = {m: n - before[m]
+                           for m, n in _launch_counts().items()}
+        res["events"] = events
+        res["tokens"] = {t.task.task_id: t.task.out_tokens
+                         for t in res["tasks"]}
+        return res
+
+    fields = ("tokens", "events", "completion_order",
+              "prefill_dispatch_trace", "decode_dispatch_trace",
+              "exec_cache_hits", "exec_cache_misses", "cow_copies",
+              "cached_tokens_reused")
+    with disable_graphs():
+        want = serve(engine())
+    _events_are_launches(want["events"], want["launches"])
+    assert want["launches"][tpfd] > 0 and want["launches"][trcp] > 0
+    eng = engine()
+    first = serve(eng)
+    cache1 = eng.paged_cache.state
+    assert eng._window_key in eng._window.aot
+    assert eng._admit_key in eng._admit.aot
+    assert eng._cow_key in eng._cow.aot
+    assert eng._window.replays == first["decode_dispatches"]
+    second = serve(eng)
+    cache2 = eng.paged_cache.state
+    assert cache2 is not cache1
+    assert eng._window.aot[eng._window_key].bound[2] is cache2
+    assert eng.graph_stats()["warm_s"] > 0
+    for res in (first, second):
+        for f in fields:
+            assert res[f] == want[f], f
+    keep = engine(persist_prefix_cache=True)
+    serve(keep)
+    again = serve(keep)
+    assert keep.graph_stats()["capture_s"] == 0.0
+    assert keep._window.replays == again["decode_dispatches"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_capture_with_a_host_read_raises(cuda):
+    """No fallback: a function that reads a device value on the host
+    cannot be captured, and ``warm`` raises and keeps no graph."""
+    from repro_torch.serving.generate import GraphExecutable
+
+    def host_read(x):
+        return x * int(x.sum())
+
+    ex = GraphExecutable(host_read, "host-read", cuda)
+    with pytest.raises(RuntimeError):
+        ex.warm("k", (torch.ones(3, device=cuda),))
+    assert ex.aot == {}
