@@ -68,9 +68,25 @@ Phases, in order; any failure exits non-zero:
      schedule, hits, free blocks, and in a profiled row the kernels run,
      as in phase 4).  The share of requests with identical
      tokens across rows is printed, not held (the kernel path is held to
-     its plain path by tolerance).
+     its plain path by tolerance);
+  6. observability — phase 4's workload, its requests in two traffic
+     classes (``core.workload``: interactive with TTFT and ITL targets,
+     batch with an end-to-end one), and then each phase-5 row, served
+     graphed on a fresh engine with ``obs=Observability(...)`` (trace,
+     metrics, SLO monitor, calibration ledger, health snapshots; the
+     persistent row twice, each serve into its own bundle).  It fails
+     unless each traced serve gives its untraced graphed twin's tokens,
+     schedule, prefix hits and free blocks, emits only known non-fault
+     event kinds, its counters equal the result's mirrors with no
+     fallback, its JSONL (written to ``build/`` with the Perfetto JSON)
+     reloads with the same events and rebuilds the result's TTFT / ITL
+     p50 and p99, its calibration ledger and per-class SLO counts cover
+     every request.  One ``engine obs`` line a serve: traced and untraced
+     wall, the emitters' seconds, the event count, the serve thread's
+     collect waits, the span sums, per-class attainment, calibration MAE
+     and bias.
 
-Every number of phases 4 and 5, tokens and traces included, also goes to
+Every number of phases 4 to 6, tokens and traces included, also goes to
 ``build/chip_smoke.json``.  Then one JSON line of kernel results
 (each kernel's launches from the path that runs it: decode and ragged
 prefill from phase 4's eager serve, chunked prefill from
@@ -888,6 +904,9 @@ def check_single_chunk(torch, cfg, params, kmods) -> dict:
     return out
 
 
+#: seconds the profiled window stays open after the last kernel
+PROFILE_TAIL_S = 0.25
+
 # the device kernels of the engine path's two port kernels
 # (csrc/paged_decode_attention.cu, csrc/ragged_chunked_prefill.cu)
 PROFILE_TAGS = ("paged_decode_split_kernel", "paged_decode_combine_kernel",
@@ -917,6 +936,10 @@ def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        # the trace keeps only device records its clock places inside the
+        # window, and the device clock drifts from the host's over a long
+        # process: close the window well after the last kernel
+        time.sleep(PROFILE_TAIL_S)
     # walk the raw device events: ``key_averages`` builds a Python object
     # per event, minutes for the millions of launches of a whole serve
     cuda = torch.autograd.DeviceType.CUDA
@@ -977,23 +1000,43 @@ def timed_serve(torch, eng, requests, kmods, graphed: bool):
     graphed (the default), its kernels' launch counts reset just before
     and read just after.  A wrapper counts where it launches on the host:
     in a graphed serve that is its eager calls and captures, not its
-    replays (which ``kernel_events`` of a profiled serve count).  Returns
-    (result, wall s, launches, the growth of ``memory_reserved`` over the
-    serve, the allocator's free blocks released just before)."""
+    replays (which ``kernel_events`` of a profiled serve count).  Garbage
+    left by earlier phases (a profile's event objects) is collected first,
+    and the interpreter's cyclic collections during the serve are timed.
+    Returns (result, wall s, launches, the growth of ``memory_reserved``
+    over the serve, {"gc_before_s", "gc_pauses", "gc_pause_s"})."""
     import contextlib
+    import gc
     from repro_torch.serving.generate import disable_graphs
+    host = {"gc_pauses": 0, "gc_pause_s": 0.0}
+    started = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            host["gc_pauses"] += 1
+            host["gc_pause_s"] += time.perf_counter() - started.pop()
+
+    t0 = time.perf_counter()
+    gc.collect()
+    host["gc_before_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
     for m in kmods:
         m.launches = 0
-    with contextlib.nullcontext() if graphed else disable_graphs():
-        t0 = time.perf_counter()
-        res = eng.serve(requests)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    gc.callbacks.append(on_gc)
+    try:
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            t0 = time.perf_counter()
+            res = eng.serve(requests)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(on_gc)
     return (res, wall, {m.NAME: m.launches for m in kmods},
-            torch.cuda.memory_reserved() - reserved)
+            torch.cuda.memory_reserved() - reserved, host)
 
 
 def profiled_serve(torch, make_engine, requests, graphed: bool) -> dict:
@@ -1065,37 +1108,55 @@ def same_serve(label: str, eager: dict, graphed: dict,
                      f"eager {ev[0][tag]}")
 
 
+def engine_for(cfg, params, inputs, **kw):
+    """A fresh engine of phase 4 and 5 (RT-LM policy, 16 slots, block 16,
+    bucket 128, EOS disabled) on the card; ``kw``: the row's arguments."""
+    from repro_torch.core import scheduler as sched
+    from repro_torch.serving.engine import ServingEngine
+    persona, profile = inputs["persona"], inputs["profile"]
+    policy = sched.POLICIES["rt-lm"](persona, profile.policy_config())
+    return ServingEngine(params, cfg, policy, profile, num_slots=NUM_SLOTS,
+                         kv_block_size=BS, input_bucket=INPUT_BUCKET,
+                         max_new_tokens=MAX_NEW, eos_id=-1, device="cuda",
+                         **kw)
+
+
+#: phase 4's engine row: continuous, paged, chunked prefill, 4-step windows
+PHASE4_ROW = dict(mode="continuous", kv="paged", prefill="chunked",
+                  decode_steps=DECODE_STEPS, chunk_size=CHUNK)
+
+
+def phase4_requests(inputs, classes=None) -> list:
+    """Phase 4's 32 corpus requests at t = 0, caps from the corpus;
+    ``classes``: a traffic class per request."""
+    from repro_torch.serving.engine import Request
+    classes = classes or [""] * N_REQUESTS
+    return [Request(text=t.text, arrival=0.0, task_id=i,
+                    max_new_tokens=t.out_lens["bart"],
+                    traffic_class=classes[i])
+            for i, t in enumerate(inputs["test"][:N_REQUESTS])]
+
+
 def run_engine(torch, cfg, params, kmods, inputs) -> dict:
     """Phase 4's serve eager, then graphed, each on a fresh engine, then
     the same two serves under the profiler (graphed first).  The graphed
     serve must equal the eager one (``same_serve``: tokens, schedule, the
     device kernels counted by name), replay every decode window, and
     leave the card idle a smaller share of the serve."""
-    from repro_torch.core import scheduler as sched
-    from repro_torch.serving.engine import Request, ServingEngine
-    persona, profile = inputs["persona"], inputs["profile"]
-    tasks = inputs["test"][:N_REQUESTS]
 
     def engine():
-        policy = sched.POLICIES["rt-lm"](persona, profile.policy_config())
-        return ServingEngine(
-            params, cfg, policy, profile, mode="continuous", kv="paged",
-            prefill="chunked", decode_steps=DECODE_STEPS,
-            num_slots=NUM_SLOTS, kv_block_size=BS,
-            input_bucket=INPUT_BUCKET, chunk_size=CHUNK,
-            max_new_tokens=MAX_NEW, eos_id=-1, device="cuda")
+        return engine_for(cfg, params, inputs, **PHASE4_ROW)
 
     def requests():
-        return [Request(text=t.text, arrival=0.0, task_id=i,
-                        max_new_tokens=t.out_lens["bart"])
-                for i, t in enumerate(tasks)]
+        return phase4_requests(inputs)
 
     out = {"profile_train_s": inputs["profile_s"]}
     for mode in ("eager", "graphed"):
         eng = engine()
-        res, wall, launches, grown = timed_serve(torch, eng, requests(),
-                                                 kmods, mode == "graphed")
+        res, wall, launches, grown, host = timed_serve(
+            torch, eng, requests(), kmods, mode == "graphed")
         out[mode] = engine_serve(cfg, res, wall, launches)
+        out[mode].update(host)
         out[mode]["reserved_growth_bytes"] = grown
         if mode == "graphed":
             out[mode]["graphs"] = graph_report("engine", eng, res)
@@ -1195,6 +1256,12 @@ def prefix_workload(test) -> list:
     return out
 
 
+def row_requests(work) -> list:
+    from repro_torch.serving.engine import Request
+    return [Request(text=text, arrival=0.0, task_id=i, max_new_tokens=c)
+            for i, (text, c) in enumerate(work)]
+
+
 def run_engine_rows(torch, cfg, params, kmods, inputs, card: str) -> dict:
     """Each row of ENGINE_ROWS serves the same 16 shared-prefix requests
     at full width (the persistent row twice, on one engine), eager and
@@ -1204,24 +1271,15 @@ def run_engine_rows(torch, cfg, params, kmods, inputs, card: str) -> dict:
     (device busy time and idle share).  Every graphed serve must equal its
     eager twin (``same_serve``, prefix hits and free blocks included, and
     the device kernels counted by name where the row was profiled)."""
-    from repro_torch.core import scheduler as sched
-    from repro_torch.serving.engine import Request, ServingEngine
-    persona, profile = inputs["persona"], inputs["profile"]
     work = prefix_workload(inputs["test"])
     caps = [max(1, min(c, MAX_NEW)) for _, c in work]
     rows = {}
 
     def engine(kw):
-        policy = sched.POLICIES["rt-lm"](persona, profile.policy_config())
-        return ServingEngine(
-            params, cfg, policy, profile, num_slots=NUM_SLOTS,
-            kv_block_size=BS, input_bucket=INPUT_BUCKET,
-            max_new_tokens=MAX_NEW, eos_id=-1, device="cuda", **kw)
+        return engine_for(cfg, params, inputs, **kw)
 
     def requests():
-        return [Request(text=text, arrival=0.0, task_id=i,
-                        max_new_tokens=c)
-                for i, (text, c) in enumerate(work)]
+        return row_requests(work)
 
     for name, kw in ENGINE_ROWS:
         serves = 2 if kw.get("persist_prefix_cache") else 1
@@ -1230,10 +1288,11 @@ def run_engine_rows(torch, cfg, params, kmods, inputs, card: str) -> dict:
             eng = engine(kw)
             for k in range(serves):
                 label = name if serves == 1 else f"{name}-{k + 1}"
-                res, wall, launches, grown = timed_serve(
+                res, wall, launches, grown, host = timed_serve(
                     torch, eng, requests(), kmods, graphed)
                 row = engine_row(cfg, eng, res, caps, wall, launches, label,
                                  graphed)
+                row.update(host)
                 row["reserved_growth_bytes"] = grown
                 if graphed:
                     row["graphs"] = graph_report(label, eng, res)
@@ -1324,6 +1383,182 @@ def engine_row(cfg, eng, res, caps, wall, launches, label,
         "tokens": {t.task.task_id: t.task.out_tokens for t in res["tasks"]},
         **{f: res[f] for f in SCHEDULE_FIELDS},
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 6: observability
+# ---------------------------------------------------------------------------
+
+#: phase 4's two traffic classes (``core.workload``): interactive requests
+#: held to TTFT and ITL targets, batch ones to an end-to-end target
+TRAFFIC = {"interactive": {"slo": {"ttft_s": 2.5, "itl_s": 0.02}},
+           "batch": {"slo": {"e2e_s": 30.0}}}
+#: the health snapshots' cadence, in decode steps
+SNAPSHOT_STEPS = 16
+FAULT_KINDS = {"timeout", "shed", "retry", "failover", "replica_down",
+               "replica_up", "dead_letter"}
+
+
+def run_obs(torch, cfg, params, kmods, inputs, eres: dict, rres: dict,
+            card: str) -> dict:
+    """Phase 4's workload (its requests in two traffic classes) and then
+    each phase-5 row, served graphed on a fresh engine with
+    ``obs=Observability(...)`` (the persistent row twice, each serve into
+    its own bundle), the kernels' launch counts reset just before each
+    serve and read just after.  ``obs_row`` holds each traced serve to its
+    row's untraced graphed serve and to its own result."""
+    from repro_torch.core import workload
+    from repro_torch.obs import Observability
+    classes = workload.make_traffic_classes(TRAFFIC)
+
+    def bundle(targets):
+        # the trace, the metrics, the SLO monitor over ``targets``, the
+        # calibration ledger and health snapshots
+        return Observability(slo=targets, calibration=True,
+                             snapshot_every_steps=SNAPSHOT_STEPS)
+
+    out = {}
+    cls = workload.assign_classes(N_REQUESTS, classes, seed=0)
+    eng = engine_for(cfg, params, inputs, **PHASE4_ROW,
+                     obs=bundle(workload.slo_targets(classes)))
+    res, wall, launches, _, host = timed_serve(
+        torch, eng, phase4_requests(inputs, cls), kmods, True)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"engine obs: kernel {name} was never launched")
+    if eng.allocator.num_free != eng.kv_num_blocks:
+        fail(f"engine obs: {eng.allocator.num_free} of {eng.kv_num_blocks} "
+             "blocks free after the serve")
+    rec = engine_serve(cfg, res, wall, launches)
+    rec.update(host)
+    out["engine"] = obs_row("engine", eng, res, rec, eres["graphed"], card)
+    work = prefix_workload(inputs["test"])
+    caps = [max(1, min(c, MAX_NEW)) for _, c in work]
+    for name, kw in ENGINE_ROWS:
+        serves = 2 if kw.get("persist_prefix_cache") else 1
+        eng = engine_for(cfg, params, inputs, **kw)
+        for k in range(serves):
+            label = name if serves == 1 else f"{name}-{k + 1}"
+            eng.obs = bundle(True)          # one default class
+            res, wall, launches, _, host = timed_serve(
+                torch, eng, row_requests(work), kmods, True)
+            rec = engine_row(cfg, eng, res, caps, wall, launches, label,
+                             True)
+            rec.update(host)
+            out[label] = obs_row(label, eng, res, rec,
+                                 rres["rows"][label]["graphed"], card)
+        if eng.prefix_cache is not None:
+            eng.prefix_cache.clear()
+        if eng.allocator is not None:
+            eng.allocator.check_no_leaks()
+    return out
+
+
+def obs_row(label: str, eng, res, rec: dict, base: dict, card: str) -> dict:
+    """The checks and numbers of one traced serve.  It fails unless (1) its
+    tokens, schedule, prefix hits and free blocks equal the untraced
+    graphed serve's (``base``); (2) every event kind is in ``EVENT_KINDS``
+    and none is a fault kind; (3) the counters equal the result's mirrors
+    and no fallback was counted; (4) the JSONL written to ``build/``
+    reloads with the same parity events, and its timelines give the
+    result's TTFT (and, with decode windows, ITL) p50 / p99 within the
+    histogram's relative error; (5) the calibration ledger counts every
+    request, its error sum Σ(u - length); (6) each traffic class's SLO
+    counts are its requests'.  Prints one ``engine obs`` line."""
+    from repro_torch.obs import (EVENT_KINDS, SLO_METRICS, Histogram,
+                                 TraceRecorder, timelines)
+    ob = eng.obs
+    for f in ("tokens",) + SCHEDULE_FIELDS + ("prefix_hit_blocks",
+                                              "free_blocks_after"):
+        if f in base and rec[f] != base[f]:
+            fail(f"engine obs {label}: traced {f} differs from the "
+                 f"untraced serve's: {rec[f]} vs {base[f]}")
+    kinds = {e.kind for e in ob.trace.events}
+    if not kinds <= EVENT_KINDS or kinds & FAULT_KINDS:
+        fail(f"engine obs {label}: event kinds {sorted(kinds)}")
+    c = ob.metrics.counters()
+    n = len(res["tasks"])
+    pc = eng.prefix_cache
+    mirrors = {"sched.completions": n,
+               "prefill.dispatches": res["prefill_dispatches"],
+               "decode.dispatches": res["decode_dispatches"],
+               "decode.steps": res["decode_steps_executed"],
+               "prefix.hit_blocks": pc.hit_blocks if pc is not None else 0,
+               "prefix.cow_copies": res["cow_copies"]}
+    for k, want in mirrors.items():
+        if c.get(k, 0) != want:
+            fail(f"engine obs {label}: counter {k} = {c.get(k, 0)}, the "
+                 f"result says {want}")
+    if res["fallback_events"] != 0 or ob.trace.dropped:
+        fail(f"engine obs {label}: {res['fallback_events']} fallbacks, "
+             f"{ob.trace.dropped} dropped events")
+    stem = ROOT / "build" / f"obs_{label}"
+    stem.parent.mkdir(exist_ok=True)
+    back = TraceRecorder.load_jsonl(ob.trace.to_jsonl(f"{stem}.jsonl"))
+    ob.trace.export_perfetto(f"{stem}.perfetto.json")
+    if back.parity_events() != ob.trace.parity_events():
+        fail(f"engine obs {label}: the JSONL does not round-trip")
+    ttft, itl = Histogram(), Histogram()
+    for t in timelines(back).values():
+        ttft.record(t.ttft)
+        for v in t.itls:
+            itl.record(v)
+    tol = 2 * (Histogram.GROWTH ** 0.5 - 1.0)
+    checks = [("ttft", ttft)] + ([("itl", itl)] if res["decode_dispatches"]
+                                 else [])
+    for name, h in checks:
+        for q in (50, 99):
+            got, want = h.quantile(q / 100), res[f"{name}_p{q}"]
+            if abs(got - want) > tol * abs(want):
+                fail(f"engine obs {label}: trace {name} p{q} {got} vs "
+                     f"result {want}")
+    cal = ob.calibration
+    err = sum(t.u - t.task.out_len for t in res["tasks"])
+    if cal.count != n or abs(cal.err_sum - err) > 1e-6 * max(1.0, abs(err)):
+        fail(f"engine obs {label}: calibration count {cal.count}, error "
+             f"sum {cal.err_sum} vs {err}")
+    slo = ob.slo.parity_counters()
+    by_cls: dict = {}
+    for t in res["tasks"]:
+        k = ob.slo.resolve(t.task.traffic_class)
+        want = by_cls.setdefault(k, {"completions": 0, "ttft": 0, "e2e": 0,
+                                     "queue_wait": 0, "itl": 0})
+        for m in ("completions", "ttft", "e2e", "queue_wait"):
+            want[m] += 1
+        want["itl"] += t.task.out_len - 1
+    for k, want in by_cls.items():
+        for m, v in want.items():
+            key = (f"slo.{k}.completions" if m == "completions"
+                   else f"slo.{k}.{m}.total")
+            if slo.get(key, 0) != v:
+                fail(f"engine obs {label}: {key} = {slo.get(key, 0)}, "
+                     f"{v} requests' worth")
+    spans: dict = {}
+    for sp in ob.trace.spans:
+        spans[sp.name] = spans.get(sp.name, 0.0) + sp.dur
+    waits = ob.metrics.histogram("pipeline.collect_wait_s")
+    row = {
+        "wall_s": rec["wall_s"], "untraced_wall_s": base["wall_s"],
+        "obs_overhead_s": res["obs_overhead_s"],
+        "obs_overhead_share": res["obs_overhead_s"] / rec["wall_s"],
+        "events": ob.event_count(), "spans": len(ob.trace.spans),
+        "snapshots": len(ob.health_trace),
+        "collect_waits": waits.count,
+        "collect_wait_p50_s": waits.quantile(0.50),
+        "collect_wait_p99_s": waits.quantile(0.99),
+        "collect_wait_sum_s": waits.total,
+        "span_sum_s": spans,
+        "graph_warm_s": eng.graph_warm_s,
+        **{k: rec[k] for k in ("gc_before_s", "gc_pauses", "gc_pause_s")},
+        "attainment": {k: {m: v[m]["frac"] for m in SLO_METRICS
+                           if v[m]["total"]}
+                       for k, v in res["slo_attainment"].items()},
+        "calibration_mae": cal.mae, "calibration_bias": cal.bias,
+        "launches": rec["launches"],
+        "counters": c,
+    }
+    print(f"engine obs {label} [{card}]: {json.dumps(row)}", flush=True)
+    return row
 
 
 #: per-request and per-iteration lists, kept out of the printed lines (the
@@ -1419,6 +1654,11 @@ def main() -> int:
     save_record(record)
     print(f"engine rows [{card}]: token identity "
           f"{json.dumps(rres['token_identity'])}", flush=True)
+
+    # -- phase 6: observability, every row traced
+    record["obs"] = run_obs(torch, cfg, params, KERNELS[:2], inputs, eres,
+                            rres, card)
+    save_record(record)
 
     # each kernel's launches on the path that runs it, counted where its
     # wrapper launches it: the eager serve (the graphed one ran the same

@@ -10,9 +10,11 @@ What is ported is the serving engine on dense full-attention transformers:
 every valid row of the reference's configuration matrix (batch mode;
 continuous stall admission on the contiguous or paged cache; continuous
 chunked prefill on the paged cache; the prefix cache), driven by any
-policy, with the bulk lane.  The paged rows' two attention kernels are
-hand-written CUDA for Hopper (``csrc/*.cu``), like the four other kernels
-of the reference; see ``repro_torch.kernels``.
+policy, with the bulk lane, and its observability (``repro_torch.obs``:
+lifecycle traces, metrics, SLO monitor, calibration ledger).  The paged
+rows' two attention kernels are hand-written CUDA for Hopper
+(``csrc/*.cu``), like the four other kernels of the reference; see
+``repro_torch.kernels``.
 
 Unlike the functional JAX package, the port updates state in place: page
 pools, per-slot positions and ring caches are mutated by the model functions

@@ -6,11 +6,12 @@
   scheduler  — Algorithm 1 UASCHED + FIFO/HPF/LUF/MUF baselines [copy]
   datagen    — six-type synthetic corpora + benchmark mixes     [copy]
   personas   — published per-LM coefficient profiles            [copy]
+  workload   — arrival traces + traffic classes with SLO targets [copy]
 
-The simulator and workload generator are not ported yet; the reference
+The simulator is not ported yet; the reference
 simulator (``repro.core.simulator``) is the oracle the port's engine is
 tested against.
 """
 
 from . import (datagen, personas, predictor, priority, rulegen,  # noqa
-               scheduler)
+               scheduler, workload)

@@ -1,17 +1,84 @@
-"""Streaming log-bucketed histogram (copy of ``repro.obs.metrics.Histogram``).
+"""Streaming metrics: counters, gauges, log-bucketed histograms (port of
+``repro.obs.metrics``).
 
-The engine's result reports TTFT / ITL / queue-wait quantiles through this
-class, as the reference engine and simulator do, so the port's tail metrics
-are computed by the same deterministic quantile rule.  Samples land in
-log-spaced buckets (relative width ``growth - 1``); ``quantile`` returns
-the geometric midpoint of the bucket holding the target order statistic,
-clamped to the observed ``[min, max]``.
+The registry is the engine/simulator-shared half of the observability
+substrate (``obs``): both sides drive the same classes with the
+same deterministic quantities (admission counts, chunk budget fills,
+eviction-lag depths), so a counter — and even a histogram fed
+bit-identical samples — compares bit-for-bit in the engine-vs-sim
+parity tests, exactly like the dispatch counters in
+``ServingEngine._result`` / ``SimResult``.
+
+``Histogram`` is the replacement for the pooled-list percentile math
+that used to live in ``_result``/``SimResult``: samples land in
+log-spaced buckets (relative width ``growth - 1``), state is a sparse
+``bucket index -> count`` dict that merges associatively, and
+``quantile`` returns a deterministic estimate — the geometric midpoint
+of the bucket holding the target order statistic, clamped to the exact
+observed ``[min, max]`` — so a million-request simulation keeps O(num
+buckets) state instead of every inter-token latency, while any
+percentile stays within one bucket's relative width of the exact order
+statistic (tests/test_obs.py pins the bound).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+
+class Counter:
+    """Monotonic event count."""
+
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value = 0
+
+    def inc(self, n: int = 1) -> None:
+        self.value += n
+
+    def merge(self, other: "Counter") -> "Counter":
+        self.value += other.value
+        return self
+
+    def snapshot(self):
+        return self.value
+
+
+class Gauge:
+    """Last-written value plus running max/mean of every ``set``."""
+
+    __slots__ = ("value", "max", "total", "n")
+
+    def __init__(self) -> None:
+        self.value = 0.0
+        self.max = 0.0
+        self.total = 0.0
+        self.n = 0
+
+    def set(self, v: float) -> None:
+        v = float(v)
+        self.value = v
+        self.max = v if self.n == 0 else max(self.max, v)
+        self.total += v
+        self.n += 1
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.n if self.n else 0.0
+
+    def merge(self, other: "Gauge") -> "Gauge":
+        if other.n:
+            self.value = other.value          # other wrote last
+            self.max = other.max if self.n == 0 else max(self.max,
+                                                         other.max)
+            self.total += other.total
+            self.n += other.n
+        return self
+
+    def snapshot(self):
+        return {"last": self.value, "max": self.max, "mean": self.mean}
 
 
 class Histogram:
@@ -139,3 +206,75 @@ class Histogram:
                 "min": self.min, "max": self.max,
                 "p50": self.quantile(0.50), "p90": self.quantile(0.90),
                 "p99": self.quantile(0.99)}
+
+
+class MetricsRegistry:
+    """Name -> instrument map with get-or-create accessors.
+
+    One registry per serve/simulation run.  ``merge`` folds another
+    run's registry in (same-name instruments must be the same kind) —
+    the fan-in primitive for sharded or repeated runs.
+    """
+
+    def __init__(self) -> None:
+        self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
+        self._hists: Dict[str, Histogram] = {}
+
+    # ------------------------------------------------------------------
+    def counter(self, name: str) -> Counter:
+        c = self._counters.get(name)
+        if c is None:
+            c = self._counters[name] = Counter()
+        return c
+
+    def gauge(self, name: str) -> Gauge:
+        g = self._gauges.get(name)
+        if g is None:
+            g = self._gauges[name] = Gauge()
+        return g
+
+    def histogram(self, name: str,
+                  growth: float = Histogram.GROWTH) -> Histogram:
+        h = self._hists.get(name)
+        if h is None:
+            h = self._hists[name] = Histogram(growth)
+        return h
+
+    # ------------------------------------------------------------------
+    def counters(self) -> Dict[str, int]:
+        """Counter name -> value (the engine-vs-sim parity view: every
+        counter both sides emit is fed deterministic quantities, so
+        this dict compares with ``==``)."""
+        return {k: c.value for k, c in sorted(self._counters.items())}
+
+    def merge(self, other: "MetricsRegistry") -> "MetricsRegistry":
+        for k, c in other._counters.items():
+            self.counter(k).merge(c)
+        for k, g in other._gauges.items():
+            self.gauge(k).merge(g)
+        for k, h in other._hists.items():
+            self.histogram(k, h.growth).merge(h)
+        return self
+
+    def snapshot(self) -> Dict[str, dict]:
+        out: Dict[str, dict] = {}
+        for k, c in sorted(self._counters.items()):
+            out[k] = {"type": "counter", "value": c.snapshot()}
+        for k, g in sorted(self._gauges.items()):
+            out[k] = {"type": "gauge", **g.snapshot()}
+        for k, h in sorted(self._hists.items()):
+            out[k] = {"type": "histogram", **h.snapshot()}
+        return out
+
+
+def percentiles(values, registry: Optional[MetricsRegistry] = None,
+                name: str = "", growth: float = Histogram.GROWTH
+                ) -> Histogram:
+    """Fold ``values`` into a (possibly registry-owned) histogram —
+    the one-liner ``_result``/``SimResult`` use to rebase their
+    percentile fields onto bucketed state."""
+    h = registry.histogram(name, growth) if registry is not None \
+        else Histogram(growth)
+    h.record_many(values)
+    return h

@@ -44,9 +44,18 @@ graph, captured at serve start (``aot_warmup=True``, the reference's
 and on the CPU every step runs eagerly.  Batch mode and the bulk lane
 (``generate.generate``) run eagerly.
 
+``obs=Observability()`` (``repro_torch.obs``) records the reference's
+lifecycle events, spans, counters, per-class SLO observations
+(``Request.traffic_class``), calibration ledger and health snapshots, at
+the reference's decision points and from host state the loops already
+hold (the window's tokens after ``CompletionWorker.collect``, the
+allocator, the admission lists, the shape-key bookkeeping): recording
+reads nothing from the device and sits outside every graphed call, so it
+changes no result but the five observability keys.
+
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-item: fault plans (``faults``, ``serve(step_offset=)``), observability
-(``obs``) and non-dense model families.
+item: fault plans (``faults``, ``serve(step_offset=)``) and non-dense
+model families.
 """
 
 from __future__ import annotations
@@ -65,6 +74,8 @@ from ..kvcache import (BlockAllocator, PrefixCache, blocks_for_tokens,
                        window_target_tokens)
 from ..kvcache.paged import PagedKVCache
 from ..models import model as model_lib, transformer
+from ..obs import Observability
+from ..obs import log as obslog
 from ..obs.metrics import Histogram
 from ..prefill import (ChunkScheduler, build_packed_arrays, pack_plans,
                        suffix_shape_key)
@@ -106,6 +117,10 @@ class Request:
     # per-request decode budget (None -> engine default); with EOS
     # disabled this IS the output length
     max_new_tokens: Optional[int] = None
+    # traffic class (``core.workload.TrafficClass`` name) the SLO monitor
+    # attributes this request to; "" = unclassed (the monitor's default
+    # class, and an enqueue event without ``cls``)
+    traffic_class: str = ""
     # filled at completion:
     start: float = -1.0
     finish: float = -1.0
@@ -165,7 +180,12 @@ class ServingEngine:
                  decode_steps: int = 1,
                  aot_warmup: bool = True,
                  persist_prefix_cache: bool = False,
-                 faults=None, obs=None, device=None):
+                 faults=None, obs: Optional[Observability] = None,
+                 device=None):
+        # this engine's own fallback ledger (``obslog.scope`` around the
+        # serve), as in the reference; no path of the port falls back, so
+        # its count stays 0
+        self.fallback_ledger = obslog.RateLimitedLogger()
         self.device = resolve_device(device)
         # the reference's validation, in its order and with its messages
         if mode not in ("batch", "continuous"):
@@ -205,8 +225,6 @@ class ServingEngine:
         # what the port does not serve yet
         if faults is not None:
             raise _not_ported("fault plans (faults=)", "Queue 1 item 8")
-        if obs is not None:
-            raise _not_ported("observability (obs=)", "Queue 1 item 7")
         if cfg.family != "dense":
             raise _not_ported(f"model family {cfg.family!r}",
                               "Queue 1 item 9")
@@ -228,6 +246,9 @@ class ServingEngine:
         self.max_len = input_bucket + max_new_tokens + _MAX_LEN_SLACK
         self.decode_steps = decode_steps
         self.persist_prefix_cache = persist_prefix_cache
+        # observability bundle: off by default, every emission site is
+        # guarded, and obs=None serves are unchanged
+        self.obs = obs
         self.num_slots = (num_slots if num_slots is not None
                           else self.persona.batch_size)
         self.kv_block_size = kv_block_size
@@ -368,6 +389,31 @@ class ServingEngine:
             t.task.out_tokens = toks[i, :t.task.out_len].tolist()
             t.task.token_times = [now + dur * (j + 1) / horizon
                                   for j in range(t.task.out_len)]
+        ob = self.obs
+        if ob is not None:
+            # the times stamped above: run-to-completion streaming with a
+            # uniform ITL over the batch's decode horizon
+            ob.inc("prefill.dispatches")
+            ob.span("bulk_batch", now, finish - now, lane=lane,
+                    size=len(batch))
+            for t in batch:
+                tid = t.task.task_id
+                cls = t.task.traffic_class
+                ob.slo_observe("queue_wait", cls, now, t.task.queue_wait_s)
+                if t.task.token_times:
+                    ob.event("first_token", t.task.token_times[0], tid,
+                             lane=lane)
+                    ob.slo_observe("ttft", cls, t.task.token_times[0],
+                                   t.task.token_times[0] - t.r)
+                    if t.task.out_len > 1:
+                        ob.slo_observe("itl", cls, finish, dur / horizon,
+                                       n=t.task.out_len - 1)
+                ob.event("complete", finish, tid, lane=lane,
+                         out_len=t.task.out_len)
+                ob.inc("sched.completions")
+                ob.complete_request(cls, finish, u=t.u,
+                                    out_len=t.task.out_len,
+                                    latency_s=finish - t.r)
         return finish
 
     # ------------------------------------------------------------------
@@ -399,16 +445,18 @@ class ServingEngine:
             # the page pool is rebuilt per serve: cached block ids must
             # not outlive it
             self.prefix_cache = None
-        self._worker = CompletionWorker()
-        try:
-            if self.mode == "continuous":
-                if self.prefill == "chunked":
-                    return self._serve_continuous_chunked(requests)
-                return self._serve_continuous(requests)
-            return self._serve_batch(requests)
-        finally:
-            self._worker.close()
-            self._worker = None
+        with obslog.scope(self.fallback_ledger):
+            self._worker = CompletionWorker(
+                metrics=self.obs.metrics if self.obs is not None else None)
+            try:
+                if self.mode == "continuous":
+                    if self.prefill == "chunked":
+                        return self._serve_continuous_chunked(requests)
+                    return self._serve_continuous(requests)
+                return self._serve_batch(requests)
+            finally:
+                self._worker.close()
+                self._worker = None
 
     def _result(self, done: List[prio.SimTask], n: int) -> Dict:
         ps = (self.prefix_cache.stats()
@@ -419,6 +467,7 @@ class ServingEngine:
                 if done else 0.0)
         util = (np.array(self.kv_util_samples)
                 if self.kv_util_samples else np.zeros(1))
+        ob = self.obs
         ttft_h, itl_h, qw_h = Histogram(), Histogram(), Histogram()
         for t in done:
             times = t.task.token_times
@@ -450,6 +499,11 @@ class ServingEngine:
             "queue_wait_p50": qw_h.quantile(0.50),
             "queue_wait_p90": qw_h.quantile(0.90),
             "queue_wait_p99": qw_h.quantile(0.99),
+            # this engine's own fallback ledger: 0, as nothing falls back
+            "fallback_events": self.fallback_ledger.count(),
+            # wall seconds the obs emitters spent recording (0.0 without
+            # obs), outside the timed device regions
+            "obs_overhead_s": ob.overhead_s if ob is not None else 0.0,
             "prefill_stall_s": self.prefill_stall_s,
             "prefill_stall_max_s": self.prefill_stall_max_s,
             "budget_trace": list(self.budget_trace),
@@ -475,8 +529,20 @@ class ServingEngine:
                          "aot_warmup": self.aot_warmup,
                          "persist_prefix_cache": self.persist_prefix_cache,
                          "use_kernels": self.use_kernels},
+            "slo_attainment": (ob.slo.attainment()
+                               if ob is not None and ob.slo is not None
+                               else {}),
+            "calibration": (ob.calibration.summary()
+                            if ob is not None and ob.calibration is not None
+                            else {}),
+            "health_trace": list(ob.health_trace) if ob is not None else [],
             "device": str(self.device),
         }
+
+    def health(self) -> Dict:
+        """The latest health snapshot of the current or last serve ({}
+        without obs, or before the first snapshot)."""
+        return self.obs.health() if self.obs is not None else {}
 
     def _serve_batch(self, requests: Sequence[Request]) -> Dict:
         """Run-to-completion batches formed by ``policy.select``: a batch
@@ -493,6 +559,7 @@ class ServingEngine:
         C = self.persona.batch_size
         while len(done) < n:
             while i < n and sim_tasks[i].r <= now + 1e-9:
+                self._emit_enqueue(sim_tasks[i], None)
                 queue.append(sim_tasks[i])
                 i += 1
             if queue and (len(queue) >= C
@@ -551,7 +618,7 @@ class ServingEngine:
     def _advance_decode_window(self, active, window_host, now, dt,
                                slot_task, slot_gen, slot_cap, tokens,
                                done, *, alloc=None, kvc=None,
-                               reserved=None) -> None:
+                               reserved=None, step: int = 0) -> None:
         """Window-end (in-arrears) bookkeeping, shared by the stall and
         chunked serve loops: consume the (C, n) window tokens step-major,
         record each with its interpolated emission time, finish sequences
@@ -559,7 +626,9 @@ class ServingEngine:
         only after the whole window is consumed (the eviction-lag
         invariant).  ``alloc``/``kvc``/``reserved``: the paged pool's
         state, whose blocks eviction returns (None on the contiguous
-        cache)."""
+        cache).  ``step``: the decode steps executed so far, the events'
+        iteration coordinate."""
+        ob = self.obs
         n = window_host.shape[1]
         finished: List[int] = []
         for j in range(n):
@@ -570,14 +639,25 @@ class ServingEngine:
                 tok = int(window_host[s, j])
                 slot_gen[s] += 1
                 task = slot_task[s]
+                prev_t = task.task.token_times[-1]
                 task.task.out_tokens.append(tok)
                 task.task.token_times.append(t_j)
+                if ob is not None:
+                    ob.event("token", t_j, task.task.task_id, step,
+                             slot=s, idx=slot_gen[s])
+                    ob.slo_observe("itl", task.task.traffic_class, t_j,
+                                   t_j - prev_t)
                 if tok == self.eos_id or slot_gen[s] >= slot_cap[s]:
                     task.finish = t_j
                     task.task.finish = t_j
                     task.task.out_len = slot_gen[s]
                     done.append(task)
                     finished.append(s)
+                    if ob is not None:
+                        self._emit_complete(task, t_j, step, slot_gen[s])
+                        # eviction lag: window steps this slot's blocks
+                        # stay held past its logical end (in arrears)
+                        ob.observe("decode.eviction_lag_steps", n - 1 - j)
                 else:
                     tokens[s, 0] = tok
         for s in active:
@@ -586,6 +666,8 @@ class ServingEngine:
             tid = slot_task[s].task.task_id
             slot_task[s] = None
             tokens[s, 0] = generate.PAD_ID
+            if ob is not None:
+                ob.event("evict", now, tid, step, slot=s)
             if alloc is not None:
                 alloc.free_sequence(tid)
                 kvc.clear_table(s)
@@ -598,9 +680,12 @@ class ServingEngine:
         keep their K/V across serves (every decode slot was evicted at the
         previous serve's end, so only cache-pinned blocks are live) and
         the index keeps its entries while its per-serve counters reset."""
+        mreg = self.obs.metrics if self.obs is not None else None
         if (self.persist_prefix_cache and self.paged_cache is not None
                 and self.prefix_cache is not None):
             self.prefix_cache.reset_stats()
+            # the "prefix.*" counters go to this serve's registry
+            self.prefix_cache.metrics = mreg
             return self.paged_cache, self.allocator, self.prefix_cache
         kvc = PagedKVCache(self.cfg, self.num_slots, self.kv_num_blocks,
                            self.kv_block_size, self.max_len,
@@ -610,6 +695,7 @@ class ServingEngine:
         pc = None
         if self.prefix_cache_enabled:
             pc = PrefixCache(alloc, self.kv_block_size)
+            pc.metrics = mreg
             self.prefix_cache = pc
         return kvc, alloc, pc
 
@@ -701,28 +787,35 @@ class ServingEngine:
                 "capture_s": sum(e.capture_s for e in ex.values()),
                 "warm_s": self.graph_warm_s}
 
-    def _exec_key_seen(self, key: tuple) -> None:
+    def _exec_key_seen(self, key: tuple) -> bool:
         """Count a fused prefill launch's padded shape key as an
         executable-cache hit or miss (the reference's jit memo, mirrored
-        by the simulator)."""
-        if key in self._exec_keys:
+        by the simulator); returns whether it was a hit.  The shape-key
+        bookkeeping alone decides, never whether a graph was captured, so
+        the CPU and the card count alike."""
+        hit = key in self._exec_keys
+        if hit:
             self.exec_cache_hits += 1
         else:
             self._exec_keys.add(key)
             self.exec_cache_misses += 1
+        return hit
 
     def _prefix_admit(self, cache, kvc, alloc, pc, slot: int, tid: int,
-                      toks: np.ndarray) -> torch.Tensor:
+                      toks: np.ndarray):
         """Stall admission with the prefix cache: share the matched
         blocks, copy-on-write a fully matched last block, prefill only the
         uncached suffix (a miss prefills the whole prompt), then index the
-        fresh blocks.  Returns the last position's logits (V,)."""
+        fresh blocks.  Returns the last position's logits (V,), the
+        admission plan, and for a suffix launch its shape key and whether
+        that was an executable-cache hit (None for a whole prompt)."""
         S = self.input_bucket
         plan = pc.admit(tid, toks)
         kvc.set_table(slot, alloc.table(tid))
         for src, dst in plan.cow:
             self._cow.call_aot(self._cow_key, cache, _index(src),
                                _index(dst))
+        suffix = None
         if plan.start == 0:
             last_logits = self._admit.call_aot(
                 self._admit_key, self.params, self.cfg, cache, toks[None],
@@ -730,7 +823,7 @@ class ServingEngine:
         else:
             # the uncached suffix as a single-chunk fused launch
             key = suffix_shape_key(S - plan.start)
-            self._exec_key_seen(key)
+            suffix = (key, self._exec_key_seen(key))
             tokens_arr, token_chunk, meta, tabs = build_packed_arrays(
                 key, [(slot, plan.start, toks[plan.start:],
                        alloc.table(tid))],
@@ -742,7 +835,106 @@ class ServingEngine:
                 tokens_arr, token_chunk, meta, tabs, chunk_pad=key[2],
                 use_kernels=self.use_kernels)[0]
         pc.commit(tid, toks)
-        return last_logits
+        return last_logits, plan, suffix
+
+    # -- observability: emission blocks shared by the serve loops, each a
+    # no-op without obs; the order inside each is the reference's
+    def _emit_enqueue(self, task: prio.SimTask, step) -> None:
+        if self.obs is not None:
+            cls = task.task.traffic_class
+            self.obs.event("enqueue", task.r, task.task.task_id, step,
+                           **({"cls": cls} if cls else {}))
+
+    def _emit_offload(self, task: prio.SimTask, now: float,
+                      step: int) -> None:
+        if self.obs is not None:
+            self.obs.event("offload", now, task.task.task_id, step)
+            self.obs.inc("sched.offloads")
+
+    def _emit_reject(self, task: prio.SimTask, now: float, step: int,
+                     need: int) -> None:
+        if self.obs is not None:
+            self.obs.event("reject", now, task.task.task_id, step,
+                           kv_blocks=need)
+            self.obs.inc("sched.rejections")
+
+    def _emit_admit(self, task: prio.SimTask, now: float, step: int,
+                    slot: int, need: int) -> None:
+        ob = self.obs
+        if ob is not None:
+            ob.event("admit", now, task.task.task_id, step, slot=slot,
+                     u=task.u, kv_blocks=need)
+            ob.inc("sched.admissions")
+            ob.observe("queue_wait_s", task.task.queue_wait_s)
+            ob.slo_observe("queue_wait", task.task.traffic_class, now,
+                           task.task.queue_wait_s)
+
+    def _emit_prefix_hit(self, plan, now: float, tid: int,
+                         step: int) -> None:
+        if self.obs is not None and plan.matched_blocks:
+            self.obs.event("prefix_hit", now, tid, step,
+                           cached_tokens=plan.start,
+                           matched_blocks=plan.matched_blocks,
+                           cow=len(plan.cow))
+
+    def _emit_exec_cache(self, now: float, tid, step: int, hit: bool,
+                         key: tuple) -> None:
+        if self.obs is not None:
+            self.obs.event("exec_cache", now, tid, step, hit=hit,
+                           shape_key=str(key))
+            self.obs.inc("exec_cache.hits" if hit else "exec_cache.misses")
+
+    def _emit_first_token(self, task: prio.SimTask, now: float, step: int,
+                          slot: int) -> None:
+        if self.obs is not None:
+            self.obs.event("first_token", now, task.task.task_id, step,
+                           slot=slot)
+            self.obs.slo_observe("ttft", task.task.traffic_class, now,
+                                 now - task.r)
+
+    def _emit_complete(self, task: prio.SimTask, t: float, step: int,
+                       out_len: int, evict_slot: Optional[int] = None
+                       ) -> None:
+        """A finished request: ``complete`` (and ``evict`` when it frees
+        its slot at once), the completion counter, and its SLO and
+        calibration records."""
+        ob = self.obs
+        if ob is None:
+            return
+        tid = task.task.task_id
+        ob.event("complete", t, tid, step, lane="gpu", out_len=out_len)
+        if evict_slot is not None:
+            ob.event("evict", t, tid, step, slot=evict_slot)
+        ob.inc("sched.completions")
+        ob.complete_request(task.task.traffic_class, t, u=task.u,
+                            out_len=out_len, latency_s=t - task.r)
+
+    def _emit_window(self, now: float, dt: float, step: int, nsteps: int,
+                     active: int) -> None:
+        """A decode window's counters, the KV utilization gauge and
+        counter sample, its span and its event (``dur`` = the measured
+        ``dt``)."""
+        ob = self.obs
+        if ob is not None:
+            util = self.kv_util_samples[-1]
+            ob.inc("decode.dispatches")
+            ob.inc("decode.steps", nsteps)
+            ob.gauge("kv.util", util)
+            ob.counter_sample("kv.util", now, util)
+            ob.span("decode.window", now - dt, dt, steps=nsteps,
+                    active=active)
+            ob.event("decode_window", now, None, step, steps=nsteps,
+                     active=active, dur=dt)
+
+    def _snapshot(self, now: float, step: int, queue, slot_task) -> None:
+        """The periodic health snapshot after a window's bookkeeping, its
+        ``wall`` field the pipeline's collect waits so far."""
+        if self.obs is not None:
+            self.obs.maybe_snapshot(
+                now, step, queue_depth=len(queue),
+                active=sum(t is not None for t in slot_task),
+                kv_util=self.kv_util_samples[-1],
+                wall={"collect_wait": self._worker.wait_snapshot()})
 
     def _serve_continuous(self, requests: Sequence[Request]) -> Dict:
         """Continuous serve with stall admission, on the contiguous
@@ -754,6 +946,7 @@ class ServingEngine:
         slots."""
         C = self.num_slots
         S = self.input_bucket
+        ob = self.obs
         paged = self.kv == "paged"
         pending = sorted(requests, key=lambda r: r.arrival)
         sim_tasks = [self._to_sim_task(r) for r in pending]
@@ -780,6 +973,7 @@ class ServingEngine:
         step = 0
         while len(done) < n:
             while i < n and sim_tasks[i].r <= now + 1e-9:
+                self._emit_enqueue(sim_tasks[i], step)
                 queue.append(sim_tasks[i])
                 i += 1
             iter_stall = 0.0
@@ -797,9 +991,11 @@ class ServingEngine:
                     break
                 queue = list(rest)
                 if lane == "cpu":
+                    self._emit_offload(task, now, step)
                     bulk.append(task)
                     continue
                 cap = self._cap(task.task)
+                need = 0
                 if paged:
                     # worst-case reservation gate (the simulator's
                     # block-budget model mirrors it bit for bit)
@@ -808,18 +1004,21 @@ class ServingEngine:
                     if need > self.kv_num_blocks - sum(reserved):
                         queue = prev_queue       # leave it queued
                         self._rejected_ids.add(task.task.task_id)
+                        self._emit_reject(task, now, step, need)
                         break
                 slot = slot_task.index(None)
                 if paged:
                     reserved[slot] = need
                 tid = task.task.task_id
                 task.task.queue_wait_s = now - task.r
+                self._emit_admit(task, now, step, slot, need)
                 stalled = any(t is not None for t in slot_task)
                 toks = self._tokenize_padded(task.task.text)
+                plan = suffix = None
                 t0 = time.perf_counter()
                 if pc is not None:
-                    last_logits = self._prefix_admit(cache, kvc, alloc, pc,
-                                                     slot, tid, toks)
+                    last_logits, plan, suffix = self._prefix_admit(
+                        cache, kvc, alloc, pc, slot, tid, toks)
                 elif paged:
                     kvc.set_table(slot, alloc.allocate_n(
                         tid, alloc.blocks_for(S)))
@@ -839,6 +1038,23 @@ class ServingEngine:
                 if stalled:       # live slots waited out this prefill
                     self.prefill_stall_s += dt
                     iter_stall += dt
+                if ob is not None:
+                    # after the timed launch, so recording never lands on
+                    # the engine clock; the reference's order
+                    pf_start, pf_key = 0, "admit"
+                    if plan is not None:
+                        self._emit_prefix_hit(plan, now, tid, step)
+                    if suffix is not None:
+                        pf_start, pf_key = plan.start, str(suffix[0])
+                        self._emit_exec_cache(now, tid, step, suffix[1],
+                                              suffix[0])
+                    ob.inc("prefill.dispatches")
+                    ob.span("prefill.admit", now - dt, dt, task=tid,
+                            slot=slot)
+                    ob.event("prefill_chunk", now, tid, step, slot=slot,
+                             start=pf_start, length=S - pf_start,
+                             finishes=True, shape_key=pf_key)
+                    self._emit_first_token(task, now, step, slot)
                 task.start, task.lane = now, "gpu"
                 task.task.start, task.task.lane = now, "gpu"
                 task.task.slot = slot
@@ -851,6 +1067,7 @@ class ServingEngine:
                     task.finish = now
                     task.task.finish, task.task.out_len = now, 1
                     done.append(task)
+                    self._emit_complete(task, now, step, 1, evict_slot=slot)
                     if paged:
                         alloc.free_sequence(tid)
                         kvc.clear_table(slot)
@@ -891,10 +1108,12 @@ class ServingEngine:
                 self.decode_dispatch_trace.append(nsteps)
                 self.kv_util_samples.append(
                     alloc.utilization() if paged else len(active) / C)
+                self._emit_window(now, dt, step, nsteps, len(active))
                 self._advance_decode_window(
                     active, window_host, now, dt, slot_task, slot_gen,
                     slot_cap, tokens, done, alloc=alloc, kvc=kvc,
-                    reserved=reserved)
+                    reserved=reserved, step=step)
+                self._snapshot(now, step, queue, slot_task)
                 continue
 
             if bulk and not queue:
@@ -923,6 +1142,7 @@ class ServingEngine:
         window over all slots."""
         C = self.num_slots
         S = self.input_bucket
+        ob = self.obs
         pending = sorted(requests, key=lambda r: r.arrival)
         sim_tasks = [self._to_sim_task(r) for r in pending]
         n = len(sim_tasks)
@@ -933,7 +1153,9 @@ class ServingEngine:
         cache = kvc.state
         self._bind_graphs(cache, kvc)
         reserved = [0] * C           # per-slot worst-case block holdback
-        sched = ChunkScheduler(self.chunk_size, self.token_budget)
+        sched = ChunkScheduler(self.chunk_size, self.token_budget,
+                               metrics=ob.metrics if ob is not None
+                               else None)
         slot_task: List[Optional[prio.SimTask]] = [None] * C  # decoding
         slot_gen = [0] * C
         slot_cap = [0] * C
@@ -948,6 +1170,7 @@ class ServingEngine:
         step = 0
         while len(done) < n:
             while i < n and sim_tasks[i].r <= now + 1e-9:
+                self._emit_enqueue(sim_tasks[i], step)
                 queue.append(sim_tasks[i])
                 i += 1
 
@@ -967,6 +1190,7 @@ class ServingEngine:
                     break
                 queue = list(rest)
                 if lane == "cpu":
+                    self._emit_offload(task, now, step)
                     bulk.append(task)
                     continue
                 cap = self._cap(task.task)
@@ -974,10 +1198,12 @@ class ServingEngine:
                 if need > self.kv_num_blocks - sum(reserved):
                     queue = prev_queue           # leave it queued
                     self._rejected_ids.add(task.task.task_id)
+                    self._emit_reject(task, now, step, need)
                     break
                 slot = free.pop(0)
                 reserved[slot] = need
                 task.task.queue_wait_s = now - task.r
+                self._emit_admit(task, now, step, slot, need)
                 # all of the prompt's blocks up front; the slot's DECODE
                 # table row stays on the trash page until prefill
                 # completes (the decode step writes every row)
@@ -988,6 +1214,7 @@ class ServingEngine:
                     # the chunk job covers only the uncached suffix
                     plan = pc.admit(task.task.task_id, toks)
                     start = plan.start
+                    self._emit_prefix_hit(plan, now, task.task.task_id, step)
                     for src, dst in plan.cow:
                         self._cow.call_aot(self._cow_key, cache,
                                            _index(src), _index(dst))
@@ -1014,7 +1241,8 @@ class ServingEngine:
             batch_plan = pack_plans(plans)
             if batch_plan is not None:
                 key = batch_plan.shape_key
-                self._exec_key_seen(key)
+                self._emit_exec_cache(now, None, step,
+                                      self._exec_key_seen(key), key)
                 # chunk offsets are relative to the job (the uncached
                 # suffix); job_start shifts them to prompt positions
                 entries = []
@@ -1043,6 +1271,17 @@ class ServingEngine:
                 if stalled:
                     self.prefill_stall_s += dt
                     iter_stall += dt
+                if ob is not None:
+                    ob.inc("prefill.dispatches")
+                    ob.span("prefill.ragged", now - dt, dt,
+                            chunks=len(batch_plan.chunks),
+                            tokens=batch_plan.total_tokens)
+                    for ch in batch_plan.chunks:
+                        ob.event("prefill_chunk", now,
+                                 ch.job.task.task.task_id, step,
+                                 slot=ch.slot, start=ch.start,
+                                 length=ch.length, finishes=ch.finishes,
+                                 shape_key=str(key))
                 for ci, ch in enumerate(batch_plan.chunks):
                     if not ch.finishes:
                         continue
@@ -1058,10 +1297,12 @@ class ServingEngine:
                     task.task.slot = s
                     task.task.out_tokens = [first]
                     task.task.token_times = [now]
+                    self._emit_first_token(task, now, step, s)
                     if first == self.eos_id or cap <= 1:
                         task.finish = now
                         task.task.finish, task.task.out_len = now, 1
                         done.append(task)
+                        self._emit_complete(task, now, step, 1, evict_slot=s)
                         alloc.free_sequence(task.task.task_id)
                         reserved[s] = 0
                     else:
@@ -1098,10 +1339,12 @@ class ServingEngine:
                 self.decode_dispatches += 1
                 self.decode_steps_total += nsteps
                 self.kv_util_samples.append(alloc.utilization())
+                self._emit_window(now, dt, step, nsteps, len(active))
                 self._advance_decode_window(
                     active, window_host, now, dt, slot_task, slot_gen,
                     slot_cap, tokens, done, alloc=alloc, kvc=kvc,
-                    reserved=reserved)
+                    reserved=reserved, step=step)
+                self._snapshot(now, step, queue, slot_task)
                 continue
             if plans:
                 continue

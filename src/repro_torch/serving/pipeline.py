@@ -12,6 +12,12 @@ Results come back strictly FIFO, ``dt`` is the launch-to-ready wall-clock
 delta the serve loop charges to its virtual clock, and the loops consume a
 window's result before any eviction or admission decision that depends on
 it.  A failure on the worker thread re-raises at ``collect``.
+
+Given a ``MetricsRegistry``, ``collect`` records how long the serve
+thread blocked on the worker into the ``pipeline.collect_wait_s``
+histogram, on the serve thread only: waits near zero mean the host's
+work overlapped the device's, waits that track the launch's ``dt`` mean
+the loop is device-bound.
 """
 
 from __future__ import annotations
@@ -28,10 +34,12 @@ import torch
 class CompletionWorker:
     """Daemon thread draining device completions off the serve loop."""
 
-    def __init__(self, name: str = "completion-worker"):
+    def __init__(self, name: str = "completion-worker", metrics=None):
         self._in: "queue.Queue" = queue.Queue()
         self._out: "queue.Queue" = queue.Queue()
         self._closed = False
+        self._wait_hist = (metrics.histogram("pipeline.collect_wait_s")
+                           if metrics is not None else None)
         self._thread = threading.Thread(target=self._run, name=name,
                                         daemon=True)
         self._thread.start()
@@ -68,10 +76,22 @@ class CompletionWorker:
     def collect(self) -> Tuple[np.ndarray, float]:
         """Block for the OLDEST submitted result; returns (host, dt).
         Raises whatever the readback raised on the worker thread."""
-        host, dt, exc = self._out.get()
+        if self._wait_hist is not None:
+            t0 = time.perf_counter()
+            host, dt, exc = self._out.get()
+            self._wait_hist.record(time.perf_counter() - t0)
+        else:
+            host, dt, exc = self._out.get()
         if exc is not None:
             raise exc
         return host, dt
+
+    def wait_snapshot(self) -> dict:
+        """Snapshot of the collect-wait histogram so far ({} without a
+        registry): the ``wall`` field of the engine's health snapshots,
+        outside the parity view."""
+        return (self._wait_hist.snapshot()
+                if self._wait_hist is not None else {})
 
     def close(self, timeout: Optional[float] = 5.0) -> None:
         """Stop the worker and join its thread (idempotent)."""

@@ -1,5 +1,6 @@
 """PyTorch port: the CUDA kernels against their plain versions, on the card,
-and the continuous engine's CUDA graphs against eager dispatch.
+the continuous engine's CUDA graphs against eager dispatch, and a traced
+serve's stream on the card against the CPU's.
 
 Needs a CUDA card (and ``nvcc`` to build the kernels); every test carries
 the ``cuda`` marker and skips with a reason elsewhere.  The file imports
@@ -775,3 +776,85 @@ def test_cuda_capture_with_a_host_read_raises(cuda):
     with pytest.raises(RuntimeError):
         ex.warm("k", (torch.ones(3, device=cuda),))
     assert ex.aot == {}
+
+
+# ---------------------------------------------------------------------------
+# observability: the card's traced stream is the CPU's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", ["stall", "chunked-prefix"])
+def test_cuda_traced_serve_emits_the_cpu_stream(cuda, row):
+    """One row served traced on the CPU, and on the card eagerly and
+    graphed (one m_theta for all three, so ``u`` is the same): the event
+    stream less its wall fields, the counters, the SLO counts, the
+    calibration ledger and the health vector are the CPU's.  Executable-
+    cache events come from the shape keys, not from what was captured.
+    The graphed serve's tokens are the eager one's, and an untraced graphed
+    serve has the traced one's schedule."""
+    from repro_torch.core import scheduler as sched
+    from repro_torch.obs import Observability, SLOSpec
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.generate import disable_graphs
+    cfg, params = _smoke_model(cuda)
+    params_cpu = _to(params, "cpu")
+    persona, profile, texts = _engine_setup(cuda)
+    caps = [2, 5, 3, 6, 1, 4, 6, 2]
+    classes = ["interactive", "batch"] * 4
+    kw = (dict(prefill="stall", num_slots=GC, kv_num_blocks=14)
+          if row == "stall" else
+          dict(prefill="chunked", chunk_size=5, prefix_cache=True,
+               num_slots=GC))
+
+    def serve(device, p, traced=True):
+        obs = (Observability(slo={"interactive": SLOSpec(),
+                                  "batch": SLOSpec(ttft_s=-1.0, itl_s=-1.0,
+                                                   e2e_s=-1.0,
+                                                   queue_wait_s=-1.0)},
+                             calibration=True, snapshot_every_steps=2)
+               if traced else None)
+        eng = ServingEngine(
+            p, cfg, sched.POLICIES["fifo"](persona, profile.policy_config()),
+            profile, mode="continuous", kv="paged", kv_block_size=GBS,
+            input_bucket=16, max_new_tokens=6, decode_steps=2, eos_id=-1,
+            device=device, obs=obs, **kw)
+        res = eng.serve([Request(text=t, arrival=0.0, task_id=i,
+                                 max_new_tokens=c, traffic_class=k)
+                         for i, (t, c, k) in enumerate(zip(texts, caps,
+                                                           classes))])
+        assert res["fallback_events"] == 0
+        return res, obs
+
+    def view(obs):
+        return (obs.trace.parity_events(), obs.metrics.counters(),
+                obs.slo.parity_counters(), obs.calibration.parity(),
+                [{k: h[k] for k in ("step", "queue_depth", "active",
+                                    "kv_util", "drift", "calibration_count")}
+                 for h in obs.health_trace])
+
+    _, want = serve("cpu", params_cpu)
+    with disable_graphs():
+        eager, eobs = serve(cuda, params)
+    graphed, gobs = serve(cuda, params)
+    plain, _ = serve(cuda, params, traced=False)
+    assert view(eobs) == view(want) and view(gobs) == view(want)
+    assert {e.kind for e in gobs.trace.events} >= {"admit", "token",
+                                                   "decode_window"}
+
+    def tokens(res):
+        return {t.task.task_id: t.task.out_tokens for t in res["tasks"]}
+
+    assert tokens(graphed) == tokens(eager) == tokens(plain)
+    for f in ("completion_order", "prefill_dispatch_trace",
+              "decode_dispatch_trace", "exec_cache_hits",
+              "exec_cache_misses", "budget_trace", "cow_copies"):
+        assert graphed[f] == eager[f] == plain[f], f
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

@@ -249,8 +249,6 @@ def test_tail_metrics_reported(serve):
 @pytest.mark.parametrize("kw,item", [
     pytest.param(dict(faults=object(), prefill="stall"), "Queue 1 item 8",
                  id="kw5-Queue 1 item 8"),
-    pytest.param(dict(obs=object()), "Queue 1 item 7",
-                 id="kw6-Queue 1 item 7"),
 ])
 def test_unported_options_are_refused(setup, kw, item):
     base = _engine_kw(1)

@@ -66,9 +66,12 @@ def make_setup() -> dict:
                 tprof=tprof)
 
 
-def requests(mod, texts, caps=CAPS):
-    return [mod.Request(text=t, arrival=0.0, task_id=i, max_new_tokens=c)
-            for i, (t, c) in enumerate(zip(texts, caps))]
+def requests(mod, texts, caps=CAPS, classes=None):
+    """All at t = 0; ``classes``: a traffic class per request."""
+    classes = classes or [""] * len(texts)
+    return [mod.Request(text=t, arrival=0.0, task_id=i, max_new_tokens=c,
+                        traffic_class=k)
+            for i, (t, c, k) in enumerate(zip(texts, caps, classes))]
 
 
 def port_policy(s, name: str, tau: float = 1e18):
@@ -97,16 +100,18 @@ def jax_engine(s, policy_name: str, tau: float = 1e18, **kw):
                                  s["jprof"], **kw)
 
 
-def sim_tasks(s, texts, caps=CAPS):
+def sim_tasks(s, texts, caps=CAPS, classes=None):
     """``ServingEngine._to_sim_task`` with the output length the engine
     realises (EOS disabled, cap = exact length)."""
     pred = s["tprof"].predictor
+    classes = classes or [""] * len(texts)
     out = []
-    for i, (t, c) in enumerate(zip(texts, caps)):
+    for i, (t, c, k) in enumerate(zip(texts, caps, classes)):
         d = jprio.priority_point(0.0, len(t.split()), s["jpersona"].phi,
                                  None, xi=2.0)
         out.append(jprio.SimTask(
-            task=jengine.Request(text=t, arrival=0.0, task_id=i),
+            task=jengine.Request(text=t, arrival=0.0, task_id=i,
+                                 traffic_class=k),
             u=float(max(pred.score(t), 0.0)), r=0.0, d=d,
             input_len=float(len(t.split())), true_out_len=int(c)))
     return out
