@@ -84,9 +84,32 @@ Phases, in order; any failure exits non-zero:
      every request.  One ``engine obs`` line a serve: traced and untraced
      wall, the emitters' seconds, the event count, the serve thread's
      collect waits, the span sums, per-class attainment, calibration MAE
-     and bias.
+     and bias;
+  7. replicas and faults — four engines on the card sharing the
+     parameters (``serving.replica.ReplicatedEngine``).  7a: phase 4's row
+     and requests (phase 6's two classes), traced, behind an ``rtlm``
+     router with replica 3 the bulk slice, eager and then graphed, each on
+     a fresh pool; it fails unless every request is done with its cap,
+     every ``batch`` request and no ``interactive`` one is on replica 3,
+     placements, route scores, per-replica streams and tokens are equal
+     eager and graphed, each replica's tokens and schedule equal a fresh
+     single engine's graphed serve of its group, no block is held, each
+     replica's stream carries its label and no fault event appears.  7b:
+     the paged stall row behind ``least_queue`` under a ``FaultPlan``
+     (replica 3 crashes at its step 8 with its requests active, replica 2
+     runs at half speed, a placement fails once, the doomed class times
+     out, the bulk class is shed past four queued requests), eager and
+     then graphed; it fails unless every request is completed, timed out,
+     shed or dead-lettered exactly once, replica 3 crashed with survivors
+     and every failover went elsewhere, every mechanism fired, no block is
+     held, the ``faults.*`` counters equal the result, and the eager and
+     graphed pools agree in placements, failovers, fault ids and counts,
+     per-replica streams and tokens.  One ``engine pool`` line a serve:
+     pool wall, tokens/s, TTFT / ITL p50 and p99, each replica's wall,
+     rounds, graphs and capture seconds, the fault counts.  Then the whole
+     run's seconds.
 
-Every number of phases 4 to 6, tokens and traces included, also goes to
+Every number of phases 4 to 7, tokens and traces included, also goes to
 ``build/chip_smoke.json``.  Then one JSON line of kernel results
 (each kernel's launches from the path that runs it: decode and ragged
 prefill from phase 4's eager serve, chunked prefill from
@@ -1561,6 +1584,271 @@ def obs_row(label: str, eng, res, rec: dict, base: dict, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 7: replicas and faults
+# ---------------------------------------------------------------------------
+
+#: replicas on the one card, sharing the parameters
+POOL_R = 4
+#: 7b's fault plan: replica 3 crashes at its step 8 (two 4-step windows in,
+#: its requests active), replica 2 runs at half speed over steps 0-16, the
+#: pool's last placement fails once, and the pre-admission pass times out
+#: the doomed class and sheds the bulk class past four queued requests
+CRASH_REPLICA, CRASH_STEP = 3, 8
+SLOW = (2, 0, 16, 2.0)
+TRANSIENT_AT = N_REQUESTS - 1
+RETRY_BUDGET = 3
+SHED_DEPTH = 4
+#: 7b's classes, judgment-invariant: no end-to-end target (never late) or
+#: -1.0 (late at the first check), so no decision reads the wall clock
+FAULT_CLASSES = ("interactive", "batch", "doomed")
+
+
+def pool_for(cfg, params, inputs, router, faults=None, obs=None, **kw):
+    """A fresh pool of POOL_R engines on the card (phase 4's engine
+    settings, one RT-LM policy, one bundle), behind ``router``."""
+    from repro_torch.core import scheduler as sched
+    from repro_torch.serving.replica import ReplicatedEngine
+    persona, profile = inputs["persona"], inputs["profile"]
+    policy = sched.POLICIES["rt-lm"](persona, profile.policy_config())
+    return ReplicatedEngine(params, cfg, policy, profile, replicas=POOL_R,
+                            router=router, faults=faults, obs=obs,
+                            num_slots=NUM_SLOTS, kv_block_size=BS,
+                            input_bucket=INPUT_BUCKET,
+                            max_new_tokens=MAX_NEW, eos_id=-1,
+                            device="cuda", **kw)
+
+
+def time_rounds(torch, pool) -> list:
+    """Wrap each replica's ``serve`` to record every round it serves: its
+    wall seconds (to a synchronize), the graphs it captured and their
+    capture seconds.  Returns the per-replica lists."""
+    rounds = [[] for _ in pool.engines]
+    for r, eng in enumerate(pool.engines):
+        def serve(requests, _serve=eng.serve, _eng=eng, _r=r, **kw):
+            t0 = time.perf_counter()
+            res = _serve(requests, **kw)
+            torch.cuda.synchronize()
+            st = _eng.graph_stats()
+            rounds[_r].append({"wall_s": time.perf_counter() - t0,
+                               "graphs": sum(st["graphs"].values()),
+                               "capture_s": st["capture_s"]})
+            return res
+        eng.serve = serve
+    return rounds
+
+
+def pool_serve(torch, pool, requests, kmods, graphed: bool) -> dict:
+    """One timed serve of a pool (``timed_serve``), with each replica's
+    rounds.  Returns the result, the numbers and the per-request tokens."""
+    from repro_torch.obs.metrics import Histogram
+    rounds = time_rounds(torch, pool)
+    res, wall, launches, _, host = timed_serve(torch, pool, requests, kmods,
+                                               graphed)
+    tasks = [t for rr in res["per_replica"] if rr is not None
+             for t in rr["tasks"]]
+    ttft, itl = Histogram(), Histogram()
+    for t in tasks:
+        times = t.task.token_times
+        ttft.record(times[0] - t.r)
+        for a, b in zip(times, times[1:]):
+            itl.record(b - a)
+    gen = sum(t.task.out_len for t in tasks)
+    capture = sum(x["capture_s"] for rl in rounds for x in rl)
+    row = {
+        "wall_s": wall, "generated_tokens": gen,
+        "generated_tokens_per_s": gen / wall,
+        "ttft_p50_s": ttft.quantile(0.5), "ttft_p99_s": ttft.quantile(0.99),
+        "itl_p50_s": itl.quantile(0.5), "itl_p99_s": itl.quantile(0.99),
+        "capture_s": capture, "capture_share": capture / wall,
+        "replicas": [{"wall_s": sum(x["wall_s"] for x in rl),
+                      "rounds": len(rl),
+                      "graphs": sum(x["graphs"] for x in rl),
+                      "capture_s": sum(x["capture_s"] for x in rl)}
+                     for rl in rounds],
+        "placements": res["placements"],
+        "placement_counts": res["placement_counts"],
+        "launches": launches,
+        **{k: host[k] for k in ("gc_before_s", "gc_pauses", "gc_pause_s")},
+        "tokens": {t.task.task_id: t.task.out_tokens for t in tasks},
+    }
+    if "retries" in res:
+        row["faults"] = {k: res[k] for k in ("timed_out", "shed", "retries",
+                                             "failovers", "dead_lettered")}
+        row["failover_placements"] = res["failover_placements"]
+        row["fault_ids"] = {k: [tid for rr in res["per_replica"]
+                                if rr is not None for tid in rr[f"{k}_ids"]]
+                            for k in ("timed_out", "shed")}
+    for r, eng in enumerate(pool.engines):
+        if eng.allocator is not None \
+                and eng.allocator.num_free != eng.kv_num_blocks:
+            fail(f"engine pool: replica {r} holds "
+                 f"{eng.kv_num_blocks - eng.allocator.num_free} blocks "
+                 "after the serve")
+    if not graphed and launches["paged_decode_attention"] <= 0:
+        fail("engine pool: the paged decode kernel was never launched")
+    return res, row
+
+
+def pool_events(ob) -> dict:
+    """A pool bundle's parity view: the route events and each replica's
+    stream."""
+    ev = ob.trace.parity_events()
+    return {"route": [e for e in ev if e[0] == "route"],
+            "replicas": [ob.trace.parity_events(replica=r)
+                         for r in range(POOL_R)],
+            "kinds": sorted({e[0] for e in ev})}
+
+
+def run_pool(torch, cfg, params, kmods, inputs, card: str) -> dict:
+    """7a: phase 4's row and 32 requests (phase 6's two classes) on four
+    replicas behind an rtlm router with replica 3 the bulk slice, traced,
+    eager and then graphed, each on a fresh pool; each replica's group
+    once more on a fresh single engine, graphed.  7b: the stall row on
+    four replicas behind ``least_queue`` under the fault plan above, eager
+    and then graphed.  Prints one ``engine pool`` line a serve."""
+    from repro_torch.core import workload
+    from repro_torch.obs import Observability, SLOSpec
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.faults import (CrashFault, FaultPlan,
+                                            RetryPolicy, ShedPolicy,
+                                            SlowFault, TransientFault)
+    from repro_torch.serving.router import Router
+    out = {}
+
+    # -- 7a: the unfaulted pool
+    classes = workload.make_traffic_classes(TRAFFIC)
+    cls = workload.assign_classes(N_REQUESTS, classes, seed=0)
+    runs = {}
+    for mode in ("eager", "graphed"):
+        ob = Observability(slo=workload.slo_targets(classes))
+        pool = pool_for(cfg, params, inputs,
+                        Router(POOL_R, "rtlm", bulk_replicas=(3,),
+                               bulk_classes=("batch",)),
+                        obs=ob, **PHASE4_ROW)
+        res, row = pool_serve(torch, pool, phase4_requests(inputs, cls),
+                              kmods, mode == "graphed")
+        runs[mode] = (res, row, pool_events(ob))
+        out[f"7a_{mode}"] = row
+        print(f"engine pool 7a {mode} [{card}]: "
+              f"{json.dumps(printable(row))}", flush=True)
+    (res, row, ev), (gres, grow, gev) = runs["eager"], runs["graphed"]
+    if row["launches"]["ragged_chunked_prefill"] <= 0:
+        fail("engine pool 7a: the fused prefill kernel was never launched")
+    caps = {t.task_id: max(1, min(t.max_new_tokens, MAX_NEW))
+            for t in phase4_requests(inputs)}
+    for mode, (pres, prow, pev) in runs.items():
+        toks = prow["tokens"]
+        if set(toks) != set(caps) \
+                or any(len(v) != caps[k] for k, v in toks.items()):
+            fail(f"engine pool 7a {mode}: a request was not done with its "
+                 "cap")
+        if set(pev["kinds"]) & FAULT_KINDS:
+            fail(f"engine pool 7a {mode}: fault events {pev['kinds']}")
+        for r in range(POOL_R):
+            if pres["placement_counts"][r] and not pev["replicas"][r]:
+                fail(f"engine pool 7a {mode}: replica {r}'s stream carries "
+                     "no label")
+    for i, c in enumerate(cls):
+        if (res["placements"][i] == 3) != (c == "batch"):
+            fail(f"engine pool 7a: request {i} of class {c} on replica "
+                 f"{res['placements'][i]}")
+    if ev != gev or row["tokens"] != grow["tokens"]:
+        fail("engine pool 7a: the graphed pool differs from the eager one "
+             "(placements, route scores, streams or tokens)")
+    reqs = phase4_requests(inputs, cls)
+    for r in range(POOL_R):
+        group = [q for q, p in zip(reqs, gres["placements"]) if p == r]
+        single = engine_for(cfg, params, inputs, **PHASE4_ROW)
+        want = single.serve(group)
+        got = gres["per_replica"][r]
+        for f in ("completion_order", "budget_trace",
+                  "prefill_dispatch_trace", "decode_dispatch_trace"):
+            if got[f] != want[f]:
+                fail(f"engine pool 7a: replica {r}'s {f} differs from a "
+                     "single engine's serve of its group")
+        if {t.task.task_id: t.task.out_tokens for t in got["tasks"]} \
+                != {t.task.task_id: t.task.out_tokens
+                    for t in want["tasks"]}:
+            fail(f"engine pool 7a: replica {r}'s tokens differ from a "
+                 "single engine's serve of its group")
+
+    # -- 7b: the faulted pool
+    fcls = [FAULT_CLASSES[(i // POOL_R) % 3] for i in range(N_REQUESTS)]
+    fcaps = [64 if i % POOL_R == CRASH_REPLICA else
+             t.out_lens["bart"]
+             for i, t in enumerate(inputs["test"][:N_REQUESTS])]
+    plan = FaultPlan(crashes=(CrashFault(CRASH_REPLICA, CRASH_STEP),),
+                     slowdowns=(SlowFault(*SLOW),),
+                     transients=(TransientFault(at_placement=TRANSIENT_AT),),
+                     retry=RetryPolicy(budget=RETRY_BUDGET),
+                     shed=ShedPolicy(queue_depth=SHED_DEPTH,
+                                     bulk_classes=("batch",)),
+                     deadlines=True)
+    fruns = {}
+    for mode in ("eager", "graphed"):
+        ob = Observability(slo={"interactive": SLOSpec(),
+                                "batch": SLOSpec(),
+                                "doomed": SLOSpec(e2e_s=-1.0)})
+        pool = pool_for(cfg, params, inputs, Router(POOL_R, "least_queue"),
+                        faults=plan, obs=ob, mode="continuous", kv="paged",
+                        prefill="stall", decode_steps=DECODE_STEPS)
+        reqs = [Request(text=t.text, arrival=0.0, task_id=i,
+                        max_new_tokens=fcaps[i], traffic_class=fcls[i])
+                for i, t in enumerate(inputs["test"][:N_REQUESTS])]
+        res, row = pool_serve(torch, pool, reqs, kmods, mode == "graphed")
+        fc = row["faults"]
+        c = ob.metrics.counters()
+        for k in ("timed_out", "shed", "retries", "failovers",
+                  "dead_lettered"):
+            if c.get(f"faults.{k}", 0) != fc[k]:
+                fail(f"engine pool 7b {mode}: faults.{k} = "
+                     f"{c.get(f'faults.{k}', 0)}, the result says {fc[k]}")
+        # conservation: completed, timed out, shed or dead-lettered, once
+        ids = (sum(row["fault_ids"].values(), [])
+               + [tid for o in res["completion_orders"] for tid in o])
+        if len(set(ids)) != len(ids) or not set(ids) <= set(
+                range(N_REQUESTS)) \
+                or len(ids) + fc["dead_lettered"] != N_REQUESTS:
+            fail(f"engine pool 7b {mode}: {len(ids)} outcomes and "
+                 f"{fc['dead_lettered']} dead letters for {N_REQUESTS} "
+                 "requests")
+        crashed = res["per_replica"][CRASH_REPLICA]
+        if not crashed["crashed"] or not crashed["survivor_ids"]:
+            fail(f"engine pool 7b {mode}: replica {CRASH_REPLICA} did not "
+                 "crash with survivors")
+        if any(dst == CRASH_REPLICA or src != CRASH_REPLICA
+               for _, src, dst in res["failover_placements"]):
+            fail(f"engine pool 7b {mode}: failover placements "
+                 f"{res['failover_placements']}")
+        if not (fc["failovers"] and fc["retries"] > fc["failovers"]
+                and fc["timed_out"] and fc["shed"]):
+            fail(f"engine pool 7b {mode}: a mechanism did not fire: {fc}")
+        for t in (t for rr in res["per_replica"] if rr is not None
+                  for t in rr["tasks"]):
+            want = max(1, min(fcaps[t.task.task_id], MAX_NEW))
+            if t.task.out_len != want:
+                fail(f"engine pool 7b {mode}: request {t.task.task_id} "
+                     f"produced {t.task.out_len} tokens, expected {want}")
+        row["crashed_survivors"] = crashed["survivor_ids"]
+        fruns[mode] = (row, pool_events(ob))
+        out[f"7b_{mode}"] = row
+        print(f"engine pool 7b {mode} [{card}]: "
+              f"{json.dumps(printable(row))}", flush=True)
+    (row, ev), (grow, gev) = fruns["eager"], fruns["graphed"]
+    for f in ("placements", "failover_placements", "faults", "fault_ids",
+              "tokens", "crashed_survivors"):
+        if row[f] != grow[f]:
+            fail(f"engine pool 7b: graphed {f} differs from eager")
+    if ev != gev:
+        fail("engine pool 7b: the graphed pool's parity events differ from "
+             "the eager one's")
+    out["plan"] = {"crash": [CRASH_REPLICA, CRASH_STEP], "slow": list(SLOW),
+                   "transient_at": TRANSIENT_AT, "retry_budget": RETRY_BUDGET,
+                   "shed_depth": SHED_DEPTH, "classes": list(FAULT_CLASSES)}
+    return out
+
+
 #: per-request and per-iteration lists, kept out of the printed lines (the
 #: whole record goes to build/chip_smoke.json)
 LONG_FIELDS = ("tokens", "completion_order", "budget_trace",
@@ -1578,6 +1866,7 @@ def save_record(record: dict) -> None:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1659,6 +1948,12 @@ def main() -> int:
     record["obs"] = run_obs(torch, cfg, params, KERNELS[:2], inputs, eres,
                             rres, card)
     save_record(record)
+
+    # -- phase 7: replicas and faults
+    record["pool"] = run_pool(torch, cfg, params, KERNELS[:2], inputs, card)
+    record["run_s"] = time.perf_counter() - started
+    save_record(record)
+    print(f"chip_smoke: {record['run_s']:.1f} s", flush=True)
 
     # each kernel's launches on the path that runs it, counted where its
     # wrapper launches it: the eager serve (the graphed one ran the same

@@ -11,7 +11,10 @@ every valid row of the reference's configuration matrix (batch mode;
 continuous stall admission on the contiguous or paged cache; continuous
 chunked prefill on the paged cache; the prefix cache), driven by any
 policy, with the bulk lane, and its observability (``repro_torch.obs``:
-lifecycle traces, metrics, SLO monitor, calibration ledger).  The paged
+lifecycle traces, metrics, SLO monitor, calibration ledger); and
+multi-replica serving with fault injection (``serving.router``,
+``serving.faults``, ``serving.replica.ReplicatedEngine``; R engines on one
+card share the parameters, each with its own page pool and CUDA graphs).  The paged
 rows' two attention kernels are hand-written CUDA for Hopper
 (``csrc/*.cu``), like the four other kernels of the reference; see
 ``repro_torch.kernels``.

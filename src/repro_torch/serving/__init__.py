@@ -1,4 +1,5 @@
-"""Serving layer of the port: the continuous chunked-prefill engine, its
-completion worker and the bulk lane's batched generation."""
+"""Serving layer of the port: the engine (batch and continuous loops), its
+completion worker, the bulk lane's batched generation, and multi-replica
+serving (the router, the fault machinery and ``ReplicatedEngine``)."""
 
-from . import engine, generate, pipeline  # noqa: F401
+from . import engine, faults, generate, pipeline, replica, router  # noqa: F401

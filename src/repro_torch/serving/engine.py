@@ -53,9 +53,17 @@ allocator, the admission lists, the shape-key bookkeeping): recording
 reads nothing from the device and sits outside every graphed call, so it
 changes no result but the five observability keys.
 
+``faults=ReplicaFaults(...)`` (``serving.faults``, on the continuous stall
+loop of either cache) adds the reference's failure-aware serving: the
+pre-admission ``shed_pass`` (deadline timeouts and pressure shedding),
+straggler slowdowns of the engine clock, and the crash point, which evicts
+the active slots and hands every unfinished request to the caller as a
+survivor.  ``serve(step_offset=)`` continues a replica's step coordinate
+across the failover rounds of ``serving.replica.ReplicatedEngine``.  With
+no plan the result carries no fault key.
+
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-item: fault plans (``faults``, ``serve(step_offset=)``) and non-dense
-model families.
+item: non-dense model families.
 """
 
 from __future__ import annotations
@@ -80,6 +88,7 @@ from ..obs.metrics import Histogram
 from ..prefill import (ChunkScheduler, build_packed_arrays, pack_plans,
                        suffix_shape_key)
 from . import generate
+from .faults import shed_pass
 from .pipeline import CompletionWorker
 
 EOS_ID = 1
@@ -223,8 +232,6 @@ class ServingEngine:
                              'require mode="continuous", '
                              'prefill="stall"')
         # what the port does not serve yet
-        if faults is not None:
-            raise _not_ported("fault plans (faults=)", "Queue 1 item 8")
         if cfg.family != "dense":
             raise _not_ported(f"model family {cfg.family!r}",
                               "Queue 1 item 9")
@@ -325,6 +332,18 @@ class ServingEngine:
         self.decode_steps_total = 0
         self.decode_dispatch_trace: List[int] = []
         self._worker: Optional[CompletionWorker] = None
+        # failure-aware serving (serving.faults.ReplicaFaults): the
+        # pre-admission shed pass, straggler slowdowns and the crash point
+        # of the continuous stall loop.  The crash latch and the final step
+        # coordinate persist across serves: the failover rounds of
+        # replica.ReplicatedEngine continue a replica's step stream through
+        # serve(step_offset=...), and a crash fires once.
+        self.faults = faults
+        self._crashed = False
+        self.last_step = 0
+        self.timed_out_tasks: List[prio.SimTask] = []
+        self.shed_tasks: List[prio.SimTask] = []
+        self.survivors: List[Request] = []
 
     # ------------------------------------------------------------------
     def _to_sim_task(self, req: Request) -> prio.SimTask:
@@ -420,13 +439,18 @@ class ServingEngine:
     def serve(self, requests: Sequence[Request], *,
               step_offset: int = 0) -> Dict:
         """Run a full trace (virtual-time arrivals, real execution).
-        ``step_offset`` belongs to the failover rounds of fault plans,
-        which are not ported."""
-        if step_offset:
-            if self.mode != "continuous" or self.prefill != "stall":
-                raise ValueError("step_offset requires the continuous "
-                                 "stall serve loop")
-            raise _not_ported("serve(step_offset=)", "Queue 1 item 8")
+
+        ``step_offset`` starts the step coordinate above zero: the failover
+        rounds of ``replica.ReplicatedEngine`` use it so that a replica's
+        event stream keeps counting steps where its previous serve stopped
+        (the simulator's per-replica step counter never resets)."""
+        if step_offset and (self.mode != "continuous"
+                            or self.prefill != "stall"):
+            raise ValueError("step_offset requires the continuous "
+                             "stall serve loop")
+        self.timed_out_tasks = []
+        self.shed_tasks = []
+        self.survivors = []
         self.kv_util_samples = []
         self._rejected_ids = set()
         self.peak_concurrency = 0
@@ -452,7 +476,8 @@ class ServingEngine:
                 if self.mode == "continuous":
                     if self.prefill == "chunked":
                         return self._serve_continuous_chunked(requests)
-                    return self._serve_continuous(requests)
+                    return self._serve_continuous(
+                        requests, step_offset=step_offset)
                 return self._serve_batch(requests)
             finally:
                 self._worker.close()
@@ -461,6 +486,8 @@ class ServingEngine:
     def _result(self, done: List[prio.SimTask], n: int) -> Dict:
         ps = (self.prefix_cache.stats()
               if self.prefix_cache is not None else {})
+        # a crashed or fully shed serve can complete nothing: the
+        # aggregates give zeros, not NaN
         rts = (np.array([t.response_time for t in done]) if done
                else np.zeros(1))
         span = (max(t.finish for t in done) - min(t.r for t in done)
@@ -477,7 +504,7 @@ class ServingEngine:
                     itl_h.record(float(d))
             if t.task.queue_wait_s >= 0.0:
                 qw_h.record(t.task.queue_wait_s)
-        return {
+        out = {
             "mean_response_s": float(rts.mean()),
             "max_response_s": float(rts.max()),
             "throughput_per_min": 60.0 * n / max(span, 1e-9),
@@ -538,6 +565,18 @@ class ServingEngine:
             "health_trace": list(ob.health_trace) if ob is not None else [],
             "device": str(self.device),
         }
+        if self.faults is not None:
+            # fault-gated keys: present only when a fault plan is threaded,
+            # so an unfaulted result is unchanged
+            out["timed_out"] = len(self.timed_out_tasks)
+            out["shed"] = len(self.shed_tasks)
+            out["timed_out_ids"] = [t.task.task_id
+                                    for t in self.timed_out_tasks]
+            out["shed_ids"] = [t.task.task_id for t in self.shed_tasks]
+            out["crashed"] = self._crashed
+            out["final_step"] = self.last_step
+            out["survivor_ids"] = [q.task_id for q in self.survivors]
+        return out
 
     def health(self) -> Dict:
         """The latest health snapshot of the current or last serve ({}
@@ -936,17 +975,21 @@ class ServingEngine:
                 kv_util=self.kv_util_samples[-1],
                 wall={"collect_wait": self._worker.wait_snapshot()})
 
-    def _serve_continuous(self, requests: Sequence[Request]) -> Dict:
+    def _serve_continuous(self, requests: Sequence[Request], *,
+                          step_offset: int = 0) -> Dict:
         """Continuous serve with stall admission, on the contiguous
         per-slot ring cache or the paged pool.
 
         Each iteration fills the free slots (one ``policy.admit`` call and
         one full prefill of the admitted prompt per slot, the decode loop
         stalled meanwhile), then runs one N-step decode window over all
-        slots."""
+        slots.  With a fault plan, an iteration first checks the crash
+        point and then runs ``shed_pass`` over the queue, and a window's
+        ``dt`` is stretched by the plan's slowdown."""
         C = self.num_slots
         S = self.input_bucket
         ob = self.obs
+        rf = self.faults
         paged = self.kv == "paged"
         pending = sorted(requests, key=lambda r: r.arrival)
         sim_tasks = [self._to_sim_task(r) for r in pending]
@@ -970,12 +1013,52 @@ class ServingEngine:
         self.admission_log = []
         now = 0.0
         i = 0
-        step = 0
-        while len(done) < n:
+        step = step_offset
+        while (len(done) + len(self.timed_out_tasks)
+               + len(self.shed_tasks)) < n:
+            if (rf is not None and rf.crash_at_step is not None
+                    and not self._crashed and step >= rf.crash_at_step):
+                # replica death (serving.faults.CrashFault): evict the
+                # active slots in slot order (freeing their blocks), then
+                # every unfinished request -- active, queued, bulk lane,
+                # not yet arrived -- survives for the fault coordinator
+                # to re-dispatch (the simulator's _ReplicaSim.crash())
+                crash_surv: List[prio.SimTask] = []
+                for slot in range(C):
+                    t = slot_task[slot]
+                    if t is None:
+                        continue
+                    if ob is not None:
+                        ob.event("evict", now, t.task.task_id, step,
+                                 slot=slot)
+                    if paged:
+                        alloc.free_sequence(t.task.task_id)
+                        kvc.clear_table(slot)
+                        reserved[slot] = 0
+                    slot_task[slot] = None
+                    crash_surv.append(t)
+                crash_surv += list(queue) + list(bulk) + sim_tasks[i:]
+                queue, bulk = [], []
+                self._crashed = True
+                self.survivors = [t.task for t in crash_surv]
+                if ob is not None:
+                    ob.event("replica_down", now, None, step,
+                             reason="crash", survivors=len(crash_surv))
+                    ob.inc("faults.replica_down")
+                break
             while i < n and sim_tasks[i].r <= now + 1e-9:
                 self._emit_enqueue(sim_tasks[i], step)
                 queue.append(sim_tasks[i])
                 i += 1
+            if rf is not None and queue:
+                # the pre-admission pass (serving.faults): doomed-request
+                # timeouts, then pressure shedding -- the simulator's
+                # iterate() makes the same call at the same point
+                queue, timed, dropped = shed_pass(
+                    queue, now=now, step=step, rf=rf,
+                    slo=ob.slo if ob is not None else None, obs=ob)
+                self.timed_out_tasks += timed
+                self.shed_tasks += dropped
             iter_stall = 0.0
             iter_launches = 0
 
@@ -1101,6 +1184,11 @@ class ServingEngine:
                         tokens, num_steps=nsteps)
                 self._worker.submit(window_tok, t0)
                 window_host, dt = self._worker.collect()
+                if rf is not None:
+                    # straggler fault (SlowFault): stretch the window's
+                    # charge to the engine clock; parity streams carry no
+                    # time field
+                    dt *= rf.slow_factor(step)
                 now += dt
                 step += nsteps
                 self.decode_dispatches += 1
@@ -1129,6 +1217,7 @@ class ServingEngine:
                 now += self.xi
         if not paged:
             self.slot_cache = cache
+        self.last_step = step
         return self._result(done, n)
 
     def _serve_continuous_chunked(self, requests: Sequence[Request]) -> Dict:

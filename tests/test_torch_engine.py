@@ -15,7 +15,8 @@ the JAX engine.
     (relu, untied);
   * refusals — what is not ported yet raises ``NotImplementedError``
     naming its ROADMAP item, the defaults are the reference's and serve,
-    and no card without ``device="cpu"`` raises;
+    and no card without ``device="cpu"`` raises; a fault plan is accepted
+    on both stall caches;
   * ``CompletionWorker`` — FIFO results and error propagation.
 """
 
@@ -41,6 +42,7 @@ from repro_torch.core import personas as tpersonas  # noqa: E402
 from repro_torch.core import scheduler as tsched  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
+from repro_torch.serving.faults import ReplicaFaults  # noqa: E402
 from repro_torch.serving.pipeline import CompletionWorker  # noqa: E402
 
 SLOTS = 3
@@ -246,19 +248,25 @@ def test_tail_metrics_reported(serve):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(faults=object(), prefill="stall"), "Queue 1 item 8",
-                 id="kw5-Queue 1 item 8"),
-])
-def test_unported_options_are_refused(setup, kw, item):
+@pytest.mark.parametrize("kv", ["contiguous", "paged"])
+def test_unported_options_are_refused(setup, kv):
+    """Fault plans are ported: a ``ReplicaFaults`` plan is accepted on the
+    continuous stall loop of either cache, and a serve under an empty plan
+    reports the fault keys with nothing dropped."""
     base = _engine_kw(1)
-    base.update(kw)
-    pcfg = setup["tprof"].policy_config()
-    with pytest.raises(NotImplementedError, match=item):
-        tengine.ServingEngine(
-            setup["tp"], setup["cfg"],
-            tsched.POLICIES["fifo"](setup["tpersona"], pcfg),
-            setup["tprof"], device="cpu", **base)
+    base.update(prefill="stall", kv=kv)
+    pcfg = dataclasses.replace(setup["tprof"].policy_config(), tau=1e18)
+    rf = ReplicaFaults()
+    eng = tengine.ServingEngine(
+        setup["tp"], setup["cfg"],
+        tsched.POLICIES["fifo"](setup["tpersona"], pcfg),
+        setup["tprof"], device="cpu", faults=rf, **base)
+    assert eng.faults is rf
+    res = eng.serve(_requests(tengine, setup["test"][:2]))
+    assert len(res["tasks"]) == 2
+    assert (res["timed_out"], res["shed"], res["crashed"]) == (0, 0, False)
+    assert res["survivor_ids"] == [] and res["final_step"] == eng.last_step
+    assert res["final_step"] == res["decode_steps_executed"] > 0
 
 
 def test_defaults_are_the_references_and_are_refused(setup):

@@ -14,8 +14,9 @@ reference simulator and the JAX engine.
     equal to contiguous token for token; no block leaks; slots recycled
     at the step they free;
   * validation — every ``ValueError`` row of the reference's constructor
-    raises the reference's message; ``serve(step_offset=)`` stays
-    refused.
+    raises the reference's message; ``serve(step_offset=)`` raises the
+    reference's error off the stall loop and, on it, starts the event
+    stream at the offset.
 """
 
 import inspect
@@ -29,6 +30,7 @@ import torch_engine_setup as es  # noqa: E402
 
 from repro.core import simulator  # noqa: E402
 from repro.serving import engine as jengine  # noqa: E402
+from repro_torch import obs as tobs  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
 
 STALL = dict(mode="continuous", prefill="stall")
@@ -247,14 +249,35 @@ def test_invalid_rows_raise_the_references_error(setup, kw):
 
 
 def test_step_offset_stays_refused(setup):
-    """``serve(step_offset=)`` belongs to the failover rounds of fault
-    plans: outside the stall loop it raises the reference's error, inside
-    it names the ROADMAP item."""
+    """``serve(step_offset=)`` belongs to the failover rounds of
+    ``ReplicatedEngine``: off the continuous stall loop it raises the
+    reference's error; on it, the serve's event stream starts at the
+    offset and is otherwise the stream of a serve from step 0."""
     reqs = es.requests(tengine, setup["texts"][:1], [1])
-    with pytest.raises(ValueError, match="continuous stall serve loop"):
-        es.port_engine(setup, "fifo").serve(reqs, step_offset=3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        es.port_engine(setup, "fifo", **STALL).serve(reqs, step_offset=3)
+    for kw in ({}, dict(mode="continuous", kv="paged", prefill="chunked",
+                        kv_block_size=es.BS, chunk_size=es.CHUNK,
+                        token_budget=es.BUDGET)):
+        with pytest.raises(ValueError) as want:
+            es.jax_engine(setup, "fifo", **kw).serve(
+                es.requests(jengine, setup["texts"][:1], [1]),
+                step_offset=3)
+        with pytest.raises(ValueError) as got:
+            es.port_engine(setup, "fifo", **kw).serve(reqs, step_offset=3)
+        assert str(got.value) == str(want.value)
+        assert "continuous stall serve loop" in str(got.value)
+    streams, steps = [], []
+    for offset in (0, 5):
+        ob = tobs.Observability()
+        eng = es.port_engine(setup, "fifo", obs=ob, decode_steps=2,
+                             **STALL)
+        res = eng.serve(es.requests(tengine, setup["texts"][:4],
+                                    es.CAPS[:4]), step_offset=offset)
+        streams.append(ob.trace.parity_events())
+        steps.append((eng.last_step, res["decode_steps_executed"]))
+    assert streams[1][0][2] == 5
+    assert streams[1] == [(k, tid, None if st is None else st + 5, f)
+                          for k, tid, st, f in streams[0]]
+    assert steps[1] == (steps[0][0] + 5, steps[0][1])
 
 
 def test_defaults_serve_the_references_rows(setup, serve):
