@@ -106,13 +106,35 @@ Phases, in order; any failure exits non-zero:
      graphed pools agree in placements, failovers, fault ids and counts,
      per-replica streams and tokens.  One ``engine pool`` line a serve:
      pool wall, tokens/s, TTFT / ITL p50 and p99, each replica's wall,
-     rounds, graphs and capture seconds, the fault counts.  Then the whole
-     run's seconds.
+     rounds, graphs and capture seconds, the fault counts;
+  8. the MoE and sliding-window families, each published config at full
+     width, alone on the card (phases 1-7's weights and pools freed
+     first), depth cut only where 80 GB forces it, every cut printed on
+     the model line.  8a: kimi-k2-1t-a32b cut to its dense prefix layer
+     and one MoE layer (384 experts top-8, a shared expert, D 112): the
+     two engine kernels at its heads (H 64, KV 8, D 112) against their
+     plain versions and timed as in phase 2, phase 3's model check, then
+     phase 4's row serving 16 requests eager and graphed, and the graphed
+     serve once more under the profiler; it fails unless every request
+     is done with its cap, no block leaked, the graphed serve gives the
+     eager one's tokens and schedule, and the profiled serve ran the
+     paged decode's two kernels and the fused prefill's, by name, as
+     often as the eager serve's wrappers launched them.  8b:
+     h2o-danube-3-4b whole (window 4096) in batch mode and continuous
+     stall on the contiguous ring; 8c: mixtral-8x22b cut to two layers
+     (8 experts top-2, window 4096), continuous stall.  Both serve 8
+     requests left-padded to a bucket of 4608, past the window, with caps
+     of 32, eager and graphed, held as 8a; ``kv="paged"`` must raise the
+     reference's refusal of a window.  One ``engine family`` line a
+     serve: wall, tokens/s, TTFT / ITL p50 and p99, iterations, launches,
+     capture seconds and the eager serve's prefill drop fractions.  Then
+     the whole run's seconds.
 
-Every number of phases 4 to 7, tokens and traces included, also goes to
+Every number of phases 4 to 8, tokens and traces included, also goes to
 ``build/chip_smoke.json``.  Then one JSON line of kernel results
 (each kernel's launches from the path that runs it: decode and ragged
-prefill from phase 4's eager serve, chunked prefill from
+prefill from phase 4's eager serve, beside them ``launches_d112`` and
+``device_ms_d112`` from phase 8a, chunked prefill from
 phase 3's single-chunk path, the other three from phase 2's ops path), the
 card line, and as the last line ``{"ok": true, "device": {...}}``.  Needs
 a CUDA card; imports nothing of JAX.
@@ -120,6 +142,7 @@ a CUDA card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -289,16 +312,18 @@ def held(what: str, out, ref, shares: dict) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _pool(torch, gen, nb_total: int):
+def _pool(torch, gen, nb_total: int, KV: int = KV, D: int = D):
     shape = (nb_total, BS, KV, D)
     k = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     return k, v
 
 
-def check_decode(torch, F, kmod) -> dict:
+def check_decode(torch, F, kmod, heads=(H, KV, D)) -> dict:
     """B = num_slots rows over a pool sized like the engine's, with mixed
-    lengths including 0 and 1."""
+    lengths including 0 and 1; ``heads``: (H, KV, D), starcoder2-3b's
+    unless another model's are given."""
+    H, KV, D = heads
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     B = NUM_SLOTS
@@ -310,7 +335,7 @@ def check_decode(torch, F, kmod) -> dict:
     tables = rng.permutation(N - 1)[:B * nb].reshape(B, nb)
     q = torch.randn((B, H, D), generator=gen, device="cuda").to(
         torch.bfloat16)
-    kp, vp = _pool(torch, gen, N)
+    kp, vp = _pool(torch, gen, N, KV, D)
     tab = torch.from_numpy(tables.astype(np.int32)).to("cuda")
     sl = torch.from_numpy(lens.astype(np.int32)).to("cuda")
     out = kmod.paged_flash_decode_attention(q, kp, vp, tab, sl)
@@ -370,9 +395,11 @@ def check_decode(torch, F, kmod) -> dict:
     }
 
 
-def check_ragged(torch, F, kmod) -> dict:
+def check_ragged(torch, F, kmod, heads=(H, KV, D)) -> dict:
     """Three chunks with non-zero and zero context (T_pad = 32) and one
-    chunk_len == 0 padding chunk with an all-trash table."""
+    chunk_len == 0 padding chunk with an all-trash table; ``heads`` as
+    ``check_decode``."""
+    H, KV, D = heads
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rng = np.random.default_rng(SEED + 1)
     T = CHUNK
@@ -397,7 +424,7 @@ def check_ragged(torch, F, kmod) -> dict:
         torch.bfloat16)
     vn = torch.randn((C, T, KV, D), generator=gen, device="cuda").to(
         torch.bfloat16)
-    kp, vp = _pool(torch, gen, N)
+    kp, vp = _pool(torch, gen, N, KV, D)
     tab = torch.from_numpy(tables).to("cuda")
     mt = torch.from_numpy(meta).to("cuda")
     kp1, vp1 = kp.clone(), vp.clone()
@@ -1131,17 +1158,22 @@ def same_serve(label: str, eager: dict, graphed: dict,
                      f"eager {ev[0][tag]}")
 
 
-def engine_for(cfg, params, inputs, **kw):
-    """A fresh engine of phase 4 and 5 (RT-LM policy, 16 slots, block 16,
-    bucket 128, EOS disabled) on the card; ``kw``: the row's arguments."""
+def engine_for(cfg, params, inputs, policy: str = "rt-lm", persona=None,
+               **kw):
+    """A fresh engine of phases 4, 5 and 8 (RT-LM policy, 16 slots, block
+    16, bucket 128, EOS disabled, unless ``kw`` says otherwise) on the
+    card; ``kw``: the row's arguments."""
     from repro_torch.core import scheduler as sched
     from repro_torch.serving.engine import ServingEngine
-    persona, profile = inputs["persona"], inputs["profile"]
-    policy = sched.POLICIES["rt-lm"](persona, profile.policy_config())
-    return ServingEngine(params, cfg, policy, profile, num_slots=NUM_SLOTS,
-                         kv_block_size=BS, input_bucket=INPUT_BUCKET,
-                         max_new_tokens=MAX_NEW, eos_id=-1, device="cuda",
-                         **kw)
+    persona, profile = persona or inputs["persona"], inputs["profile"]
+    args = dict(num_slots=NUM_SLOTS, kv_block_size=BS,
+                input_bucket=INPUT_BUCKET, max_new_tokens=MAX_NEW,
+                eos_id=-1, device="cuda")
+    args.update(kw)
+    return ServingEngine(params, cfg,
+                         sched.POLICIES[policy](persona,
+                                                profile.policy_config()),
+                         profile, **args)
 
 
 #: phase 4's engine row: continuous, paged, chunked prefill, 4-step windows
@@ -1849,6 +1881,257 @@ def run_pool(torch, cfg, params, kmods, inputs, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE and sliding-window families
+# ---------------------------------------------------------------------------
+
+#: 8a: kimi-k2-1t-a32b at full width, cut to its dense prefix layer and one
+#: MoE layer (18.8 B parameters: 37.5 GB of bf16 weights on the 80 GB card;
+#: each further MoE layer is 33.8 GB of experts)
+KIMI_LAYERS = 2
+FAMILY_REQUESTS = 16
+#: every phase-8 request's output cap
+FAMILY_MAX_NEW = 32
+#: 8b / 8c: prompts left-padded to a bucket past the 4096-token window
+WINDOW_BUCKET = 4608
+WINDOW_REQUESTS = 8
+#: 8c: mixtral-8x22b cut to two of its 56 layers (each 4.8 GB of experts)
+MIXTRAL_LAYERS = 2
+#: 8b / 8c rows; FIFO keeps batch mode at 8 rows of 4608 tokens (RT-LM's
+#: consolidation would take 14, whose windowed prefill scores alone need
+#: 9.4 GB a query chunk)
+WINDOW_ROWS = {
+    "h2o-danube-3-4b": (
+        ("batch", dict(mode="batch", kv="contiguous", prefill="stall")),
+        ("contiguous-stall", dict(mode="continuous", kv="contiguous",
+                                  prefill="stall",
+                                  decode_steps=DECODE_STEPS))),
+    "mixtral-8x22b": (
+        ("contiguous-stall", dict(mode="continuous", kv="contiguous",
+                                  prefill="stall",
+                                  decode_steps=DECODE_STEPS)),),
+}
+
+
+def family_model(torch, name: str, layers=None):
+    """The published config at full width, its depth cut to ``layers``
+    where one card's memory forces it, with seeded random bf16 weights;
+    prints the model line with the cut."""
+    from repro_torch import configs
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    full = configs.get_config(name)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    info = {"name": name, "layers": cfg.num_layers,
+            "published_layers": full.num_layers,
+            "kinds": list(transformer.layer_kinds(cfg)),
+            "params": sum(p.numel() for p in leaves),
+            "param_bytes": sum(p.numel() * p.element_size() for p in leaves),
+            "init_s": time.perf_counter() - t0,
+            "memory_allocated_bytes": torch.cuda.memory_allocated()}
+    cut = ("whole" if layers is None else
+           f"depth cut to {cfg.num_layers} of {full.num_layers} layers")
+    print(f"model: {name}, {cut} ({', '.join(info['kinds'])}), d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}, window {cfg.window}, experts "
+          f"{cfg.num_experts or '-'} top-{cfg.experts_per_token or '-'}, "
+          f"{info['params'] / 1e9:.3f} B params, "
+          f"{info['param_bytes'] / 1e9:.2f} GB, init {info['init_s']:.1f} s",
+          flush=True)
+    return cfg, params, info
+
+
+def free_card(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+class MoeDrops:
+    """Records ``moe_drop_frac`` of every MoE layer call that routes more
+    than one token a row (the prefills: the fused one, an admission, a
+    batch) while open; a measurement hook of this script, opened around
+    eager serves only (a graph's replay runs no Python)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.local, self.drops = moe, moe.apply_moe_local, []
+
+        def recording(params, x, cfg):
+            out, aux = self.local(params, x, cfg)
+            if x.shape[1] > 1:
+                self.drops.append((x.shape[0] * x.shape[1],
+                                   aux["moe_drop_frac"]))
+            return out, aux
+
+        moe.apply_moe_local = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.apply_moe_local = self.local
+
+    def summary(self) -> dict:
+        if not self.drops:
+            return {"calls": 0}
+        fr = [float(d) for _, d in self.drops]
+        return {"calls": len(fr), "mean": statistics.fmean(fr),
+                "max": max(fr),
+                "tokens_routed": sorted({t for t, _ in self.drops})}
+
+
+def family_serves(torch, label: str, cfg, make_engine, requests, caps,
+                  kmods, card: str, profile_graphed: bool = False) -> dict:
+    """One row of phase 8: an eager serve (MoE drops recorded) and a
+    graphed one, each on a fresh engine; the graphed must equal the eager
+    (tokens and schedule).  ``profile_graphed``: one more graphed serve
+    under the profiler, whose engine kernels must have run, by name, as
+    often as the eager serve's wrappers launched them."""
+    out = {}
+    for mode in ("eager", "graphed"):
+        graphed = mode == "graphed"
+        eng = make_engine()
+        drops = MoeDrops()
+        with drops if not graphed else contextlib.nullcontext():
+            res, wall, launches, grown, host = timed_serve(
+                torch, eng, requests(), kmods, graphed)
+        row = engine_row(cfg, eng, res, caps, wall, launches, label,
+                         graphed)
+        row.update(host)
+        row["reserved_growth_bytes"] = grown
+        if graphed:
+            row["graphs"] = graph_report(label, eng, res)
+        else:
+            row["moe_drop_frac"] = (drops.summary() if cfg.family == "moe"
+                                    else None)
+        if eng.allocator is not None:
+            eng.allocator.check_no_leaks()
+        out[mode] = row
+        del eng
+        free_card(torch)
+    same_serve(label, out["eager"], out["graphed"])
+    if profile_graphed:
+        prof = profiled_serve(torch, make_engine, requests, True)
+        events, want = prof.get("kernel_events"), out["eager"]["launches"]
+        if events is None:
+            fail(f"{label}: the profiler counted no device kernels")
+        for name, tags in KERNEL_EVENTS.items():
+            if want[name] <= 0:
+                fail(f"{label}: kernel {name} was never launched")
+            for tag in tags:
+                if events[tag] != want[name]:
+                    fail(f"{label}: the graphed serve ran {tag} "
+                         f"{events[tag]} times for {want[name]} eager "
+                         f"launches of {name}")
+        out["graphed"]["serve_profile"] = prof
+        free_card(torch)
+    for mode in ("eager", "graphed"):
+        row = out[mode]
+        line = {k: row.get(k) for k in (
+            "wall_s", "generated_tokens_per_s", "ttft_p50_s", "ttft_p99_s",
+            "itl_p50_s", "itl_p99_s", "iterations", "launches")}
+        line["capture_s"] = (row["graphs"]["capture_s"]
+                             if "graphs" in row else None)
+        # a replay runs no Python: the graphed serve routes as the eager
+        line["moe_drop_frac_of_eager_prefills"] = \
+            out["eager"]["moe_drop_frac"]
+        if "serve_profile" in row:
+            line["serve_profile"] = row["serve_profile"]
+        print(f"engine family {label} {mode} [{card}]: {json.dumps(line)}",
+              flush=True)
+    return out
+
+
+def run_kimi(torch, F, kmods, inputs, card: str) -> dict:
+    """8a: kimi-k2-1t-a32b (2 layers) — the two engine kernels at its
+    heads (D 112) against their plain versions, phase 3's model check,
+    then phase 4's row serving 16 requests eager and graphed."""
+    cfg, params, info = family_model(torch, "kimi-k2-1t-a32b", KIMI_LAYERS)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    out = {"model": info, "kernels_d112": {}}
+    for m, check in zip(kmods, (check_decode, check_ragged)):
+        r = check(torch, F, m, heads=heads)
+        r.pop("ops")
+        out["kernels_d112"][m.NAME] = r
+        print(f"kernel {m.NAME} at {cfg.name}'s heads [{card}]: "
+              f"{json.dumps(r)}", flush=True)
+    out["model_check"] = check_model(torch, cfg, params)
+    print(f"model check {cfg.name}: {json.dumps(out['model_check'])}",
+          flush=True)
+    requests = lambda: phase4_requests(inputs)[:FAMILY_REQUESTS]  # noqa
+    caps = [max(1, min(r.max_new_tokens, FAMILY_MAX_NEW))
+            for r in requests()]
+    out["serves"] = family_serves(
+        torch, "kimi-k2-1t-a32b paged-chunked", cfg,
+        lambda: engine_for(cfg, params, inputs,
+                           max_new_tokens=FAMILY_MAX_NEW, **PHASE4_ROW),
+        requests, caps, kmods, card, profile_graphed=True)
+    launches = out["serves"]["eager"]["launches"]
+    if min(launches.values()) <= 0:
+        fail(f"kimi-k2: an engine kernel was never launched: {launches}")
+    return out
+
+
+def run_window_model(torch, name: str, layers, kmods, inputs,
+                     card: str) -> dict:
+    """8b / 8c: WINDOW_REQUESTS prompts left-padded to WINDOW_BUCKET, past
+    the model's window, through each of the model's WINDOW_ROWS eager and
+    graphed; the paged rows must refuse the window as the reference
+    does."""
+    from repro_torch.serving.engine import Request
+    cfg, params, info = family_model(torch, name, layers)
+    if not cfg.window < WINDOW_BUCKET:
+        fail(f"{name}: window {cfg.window} not below the bucket")
+    persona = dataclasses.replace(inputs["persona"],
+                                  batch_size=WINDOW_REQUESTS)
+    texts = inputs["test"][:WINDOW_REQUESTS]
+
+    def requests():
+        return [Request(text=t.text, arrival=0.0, task_id=i,
+                        max_new_tokens=FAMILY_MAX_NEW)
+                for i, t in enumerate(texts)]
+
+    def engine(kw):
+        return engine_for(cfg, params, inputs, policy="fifo",
+                          persona=persona, num_slots=WINDOW_REQUESTS,
+                          input_bucket=WINDOW_BUCKET,
+                          max_new_tokens=FAMILY_MAX_NEW, **kw)
+
+    out = {"model": info, "rows": {}}
+    for row, kw in WINDOW_ROWS[name]:
+        out["rows"][row] = family_serves(
+            torch, f"{name} {row}", cfg, lambda kw=kw: engine(kw), requests,
+            [FAMILY_MAX_NEW] * WINDOW_REQUESTS, kmods, card)
+    try:
+        engine(dict(mode="continuous", kv="paged", prefill="stall"))
+    except NotImplementedError as e:
+        out["paged_refused"] = str(e)
+        if "sliding-window" not in str(e):
+            fail(f"{name}: kv='paged' refused for another reason: {e}")
+    else:
+        fail(f"{name}: kv='paged' was not refused for a windowed config")
+    return out
+
+
+def run_families(torch, F, kmods, inputs, card: str) -> dict:
+    """Phase 8, one model on the card at a time."""
+    out = {"kimi-k2-1t-a32b": run_kimi(torch, F, kmods, inputs, card)}
+    free_card(torch)
+    out["h2o-danube-3-4b"] = run_window_model(
+        torch, "h2o-danube-3-4b", None, kmods, inputs, card)
+    free_card(torch)
+    out["mixtral-8x22b"] = run_window_model(
+        torch, "mixtral-8x22b", MIXTRAL_LAYERS, kmods, inputs, card)
+    free_card(torch)
+    return out
+
+
 #: per-request and per-iteration lists, kept out of the printed lines (the
 #: whole record goes to build/chip_smoke.json)
 LONG_FIELDS = ("tokens", "completion_order", "budget_trace",
@@ -1951,6 +2234,16 @@ def main() -> int:
 
     # -- phase 7: replicas and faults
     record["pool"] = run_pool(torch, cfg, params, KERNELS[:2], inputs, card)
+    save_record(record)
+
+    # -- phase 8: the MoE and sliding-window families, each alone on the
+    # card (phases 1-7's starcoder2-3b weights and pools freed first)
+    del params
+    free_card(torch)
+    print(f"phase 8: {torch.cuda.memory_allocated()} bytes still allocated",
+          flush=True)
+    fres = run_families(torch, F, KERNELS[:2], inputs, card)
+    record["families"] = fres
     record["run_s"] = time.perf_counter() - started
     save_record(record)
     print(f"chip_smoke: {record['run_s']:.1f} s", flush=True)
@@ -1963,16 +2256,24 @@ def main() -> int:
         "ragged_chunked_prefill": eres["eager"]["launches"],
         "chunked_prefill_attention": sres["launches"],
     }
+    kimi = fres["kimi-k2-1t-a32b"]
     kernels = []
     for m in KERNELS:
         r = checks[m.NAME]
-        kernels.append({
+        entry = {
             "name": m.NAME, "route": "cuda", "source": m.SOURCE,
             "replaces": m.REPLACES,
             "launches": path_launches.get(m.NAME, ops_launches)[m.NAME],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if m.NAME in kimi["kernels_d112"]:
+            # phase 8a's eager serve at kimi-k2's head dim 112
+            entry["launches_d112"] = \
+                kimi["serves"]["eager"]["launches"][m.NAME]
+            entry["device_ms_d112"] = kimi["kernels_d112"][m.NAME][
+                "device_ms"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,18 +6,20 @@ is the counterpart of ``repro.models.transformer``, and so on.  It imports
 (configs, RULEGEN, priorities, the chunk scheduler, the block allocator) are
 kept here as copies, pinned to the reference by ``tests/test_torch_*.py``.
 
-What is ported is the serving engine on dense full-attention transformers:
-every valid row of the reference's configuration matrix (batch mode;
-continuous stall admission on the contiguous or paged cache; continuous
-chunked prefill on the paged cache; the prefix cache), driven by any
-policy, with the bulk lane, and its observability (``repro_torch.obs``:
-lifecycle traces, metrics, SLO monitor, calibration ledger); and
-multi-replica serving with fault injection (``serving.router``,
-``serving.faults``, ``serving.replica.ReplicatedEngine``; R engines on one
-card share the parameters, each with its own page pool and CUDA graphs).  The paged
-rows' two attention kernels are hand-written CUDA for Hopper
-(``csrc/*.cu``), like the four other kernels of the reference; see
-``repro_torch.kernels``.
+What is ported is the serving engine on the attention-only model families
+(dense and MoE stacks, with full or sliding-window attention; the
+recurrent, multimodal and encoder-decoder families are refused, naming
+their ROADMAP items): every valid row of the reference's configuration
+matrix (batch mode; continuous stall admission on the contiguous or paged
+cache; continuous chunked prefill on the paged cache; the prefix cache),
+driven by any policy, with the bulk lane, and its observability
+(``repro_torch.obs``: lifecycle traces, metrics, SLO monitor, calibration
+ledger); and multi-replica serving with fault injection
+(``serving.router``, ``serving.faults``, ``serving.replica.ReplicatedEngine``;
+R engines on one card share the parameters, each with its own page pool
+and CUDA graphs).  The paged rows' two attention kernels are hand-written
+CUDA for Hopper (``csrc/*.cu``), like the four other kernels of the
+reference; see ``repro_torch.kernels``.
 
 Unlike the functional JAX package, the port updates state in place: page
 pools, per-slot positions and ring caches are mutated by the model functions

@@ -1,11 +1,13 @@
 """Weight bridge: the JAX package's parameter trees, as numpy, into the port.
 
 The port keeps the reference's tensor layouts (``wq (D, H, hd)``,
-``wo (H, hd, D)``, ``embedding (V, D)``, ...), so the bridge is a copy: it
-unstacks the reference's ``stack/scan0`` leading layer axis into the
-port's per-layer list and converts every leaf, bit for bit (bf16 leaves
-travel through their raw 16-bit pattern, since numpy has no bf16 that
-torch reads).  Nothing here imports JAX: callers hand over
+``wo (H, hd, D)``, ``embedding (V, D)``, MoE ``w_gate (E, D, F)``, ...),
+so the bridge is a copy: it lays the reference's ``stack`` groups
+(``prefix{i}``, the scanned ``scan{s}`` groups unstacked along their
+leading layer axis, ``tail{i}``) out as the port's per-layer list in the
+order of ``transformer.layer_kinds``, and converts every leaf, bit for bit
+(bf16 leaves travel through their raw 16-bit pattern, since numpy has no
+bf16 that torch reads).  Nothing here imports JAX: callers hand over
 ``jax.tree.map(np.asarray, params)``.
 """
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core import predictor as predictor_lib
+from . import transformer
 
 
 def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
@@ -32,28 +35,41 @@ def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
-def _tree(x, fn):
+def _tree(x, fn, path=()):
     if isinstance(x, dict):
-        return {k: _tree(v, fn) for k, v in x.items()}
-    return fn(x)
+        return {k: _tree(v, fn, path + (k,)) for k, v in x.items()}
+    return fn(x, path)
+
+
+def stack_layers(stack: dict, cfg) -> list:
+    """The reference's ``stack`` tree (numpy or JAX leaves) as one tree a
+    layer, in the port's layer order: ``prefix{i}``, then the layers of
+    the scanned groups (layer ``r`` of repeat-group ``s`` is
+    ``scan{s}[...][r]``, repeats outer), then ``tail{i}``."""
+    pat, n, prefix, tail = transformer.stack_pattern(cfg)
+    out = [stack[f"prefix{i}"] for i in range(len(prefix))]
+    for r in range(n):
+        for s in range(len(pat)):
+            out.append(_tree(stack[f"scan{s}"],
+                             lambda a, _, r=r: np.asarray(a)[r]))
+    return out + [stack[f"tail{i}"] for i in range(len(tail))]
 
 
 def params_from_numpy(tree: dict, cfg, device, dtype=None) -> dict:
     """The reference's ``model.init_params`` tree (numpy leaves) as the
-    port's parameter dict.  Only dense stacks (one ``scan0`` group of
-    ``cfg.num_layers`` layers) are ported."""
-    stack = tree["stack"]
-    if set(stack) != {"scan0"} or cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: only dense stacks are ported (ROADMAP Queue 1 "
-            "item 9: the other model families)")
-    conv = lambda a: tensor_from_numpy(a, device, dtype)  # noqa: E731
-    scan = stack["scan0"]
+    port's parameter dict.  ``dtype`` casts every leaf but the MoE
+    routers, which stay float32 as the reference keeps them."""
+    transformer.check_ported(cfg)
+
+    def conv(a, path):
+        keep = path and path[-1] == "router"
+        return tensor_from_numpy(a, device, None if keep else dtype)
+
     return {
         "embed": _tree(tree["embed"], conv),
-        "layers": [_tree(scan, lambda a, i=i: conv(np.asarray(a)[i]))
-                   for i in range(cfg.num_layers)],
-        "final_ln": conv(tree["final_ln"]),
+        "layers": [_tree(layer, conv)
+                   for layer in stack_layers(tree["stack"], cfg)],
+        "final_ln": conv(tree["final_ln"], ()),
     }
 
 

@@ -1,4 +1,4 @@
-"""Dense neural building blocks (PyTorch port of ``repro.models.layers``).
+"""Neural building blocks (PyTorch port of ``repro.models.layers``).
 
 Parameters are plain dicts of tensors in the reference's layouts (``wq``
 (D, H, hd), ``wo`` (H, hd, D), ``embedding`` (V, D), ...), so the weight
@@ -11,11 +11,15 @@ against the JAX engine's:
   * the attention paths take scores in float32 and cast the probabilities
     to the value dtype before the P·V product (bf16 pages make that a
     rounding step the reference has too);
-  * ``apply_mlp`` uses the tanh GELU, ``jax.nn.gelu``'s default;
+  * ``apply_mlp`` uses the tanh GELU, ``jax.nn.gelu``'s default, and
+    ``silu`` op by op as ``jax.nn.silu`` (each step rounded to bf16 on
+    bf16 inputs, which the bf16 MoE layer matches bit for bit);
   * ``embed`` multiplies by sqrt(D) in the parameter dtype.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,11 +36,27 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
+# float32 draws of a larger tensor are made a leading-axis slice at a time:
+# one MoE expert stack of kimi-k2 is 5.6 GB in bf16 and would take a
+# 22.5 GB float32 temporary drawn whole
+_INIT_SLICE_BYTES = 2**30
+
+
 def dense_init(generator: torch.Generator, shape, dtype, device,
                scale: float = 0.02) -> torch.Tensor:
-    w = torch.randn(shape, generator=generator, device=device,
-                    dtype=torch.float32)
-    return (w * scale).to(dtype)
+    """``scale`` times standard normal float32 draws, cast to ``dtype``."""
+    shape = tuple(shape)
+    if 4 * torch.Size(shape).numel() <= _INIT_SLICE_BYTES:
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (w * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, _INIT_SLICE_BYTES // (4 * out[0].numel()))
+    for lo in range(0, shape[0], step):
+        part = out[lo:lo + step]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               device=device, dtype=torch.float32) * scale)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -78,14 +98,29 @@ def expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(k, num_heads // KV, dim=2)
 
 
+def _window_mask(q_positions, kv_positions, causal: bool,
+                 window: Optional[int]) -> torch.Tensor:
+    """(Sq, Sk) mask of the keys each query sees: causal keys, and with a
+    ``window`` only those less than ``window`` positions back (the
+    reference's ``_attend_chunk``)."""
+    mask = torch.ones((q_positions.shape[0], kv_positions.shape[0]),
+                      dtype=torch.bool, device=q_positions.device)
+    if causal:
+        mask &= kv_positions[None, :] <= q_positions[:, None]
+    if window is not None:
+        mask &= (q_positions[:, None] - kv_positions[None, :]) < window
+    return mask
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_positions: torch.Tensor, kv_positions: torch.Tensor,
-                      causal: bool = True,
+                      causal: bool = True, window: Optional[int] = None,
                       kv_chunk: int = 1024) -> torch.Tensor:
     """Flash-style attention, online softmax over ``kv_chunk`` key blocks
     exactly as the reference: q (B, Sq, H, D); k, v (B, Sk, KV, D) with
-    GQA H = KV * G; q_positions (Sq,), kv_positions (Sk,).  Query blocks
-    are independent, so the reference's query chunking is not repeated.
+    GQA H = KV * G; q_positions (Sq,), kv_positions (Sk,); ``window``
+    keeps only keys with ``q_pos - k_pos < window``.  Query blocks are
+    independent, so the reference's query chunking is not repeated.
     Returns (B, Sq, H, D) in q's dtype."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -102,10 +137,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         vi = v[:, lo:lo + kv_chunk]
         kpos = kv_positions[lo:lo + kv_chunk]
         s = torch.einsum("bqhd,bkhd->bhqk", qf, ki.float()) * scale
-        mask = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos[None, :] <= q_positions[:, None]
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(_window_mask(q_positions, kpos, causal, window), s,
+                        NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -118,15 +151,64 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype).permute(0, 2, 1, 3)
 
 
+def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                       window: int, q_chunk: int = 1024) -> torch.Tensor:
+    """Sliding-window causal attention in O(S * window), the reference's
+    scheme: queries in chunks of ``q_chunk``, each against the key span
+    ``[chunk_start - window, chunk_end)``.  K/V are left-padded by
+    ``window`` rows at position -2^30 (never inside a window) and
+    right-padded with the queries at +2^30 (never causal).  Prefill only
+    (q and K/V aligned, Sq == Sk); a window of at least Sk is full causal
+    attention, which ``chunked_attention`` computes as the reference does.
+    Returns (B, Sq, H, D) in q's dtype."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if window >= Sk:
+        return chunked_attention(q, k, v, q_positions=q_positions,
+                                 kv_positions=kv_positions, causal=True,
+                                 window=window)
+    scale = 1.0 / (D ** 0.5)
+    k = expand_kv(k, H)
+    v = expand_kv(v, H)
+    q_chunk = min(q_chunk, Sq)
+    nq = -(-Sq // q_chunk)
+    pq = nq * q_chunk - Sq
+    dev = q.device
+    q = F.pad(q, (0, 0, 0, 0, 0, pq))
+    q_positions = torch.cat([q_positions.to(torch.int32), torch.full(
+        (pq,), -1, dtype=torch.int32, device=dev)])
+    k = F.pad(k, (0, 0, 0, 0, window, pq))
+    v = F.pad(v, (0, 0, 0, 0, window, pq))
+    kv_positions = torch.cat([
+        torch.full((window,), -(2**30), dtype=torch.int32, device=dev),
+        kv_positions.to(torch.int32),
+        torch.full((pq,), 2**30, dtype=torch.int32, device=dev)])
+    span = window + q_chunk
+    outs = []
+    for lo in range(0, nq * q_chunk, q_chunk):
+        qpi = q_positions[lo:lo + q_chunk]
+        ki, vi = k[:, lo:lo + span], v[:, lo:lo + span]
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, lo:lo + q_chunk].float(),
+                         ki.float()) * scale
+        s = torch.where(_window_mask(qpi, kv_positions[lo:lo + span], True,
+                                     window), s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bhqd", p.to(vi.dtype).float(),
+                                 vi.float()).to(q.dtype))
+    return torch.cat(outs, dim=2).permute(0, 2, 1, 3)[:, :Sq]
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, q_position: torch.Tensor,
-                     kv_positions: torch.Tensor, valid_len: torch.Tensor
-                     ) -> torch.Tensor:
+                     kv_positions: torch.Tensor, valid_len: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
     """Single-step attention against a cache, consumed at its KV width.
 
     q: (B, 1, H, D); caches: (B, Smax, KV, D).  Batch form: scalar
     ``q_position``/``valid_len`` and (Smax,) ``kv_positions``; per-slot
     form: (B,) positions and lengths and (B, Smax) ``kv_positions``.
+    ``window`` keeps only keys with ``q_pos - k_pos < window``.
     """
     B, _, H, D = q.shape
     Sm, KV = k_cache.shape[1], k_cache.shape[2]
@@ -140,9 +222,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q_pos.ndim:                          # per-slot decode: (B,) state
         mask = ((idx[None, :] < valid_len[:, None])
                 & (kv_positions <= q_pos[:, None]))
+        if window is not None:
+            mask &= (q_pos[:, None] - kv_positions) < window
         s = torch.where(mask[:, None, None, :], s, NEG_INF)
     else:
         mask = (idx < valid_len) & (kv_positions <= q_pos)
+        if window is not None:
+            mask &= (q_pos - kv_positions) < window
         s = torch.where(mask[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
@@ -193,10 +279,17 @@ def init_mlp(generator, d_model: int, d_ff: int, act: str, dtype,
     return p
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * (1 / (1 + exp(-x)))``, each step in x's dtype: the steps of
+    ``jax.nn.silu``, which rounds after each of them on bf16 inputs
+    (``F.silu`` rounds once)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     up = x @ params["w_up"]
     if act == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * up
+        h = silu(x @ params["w_gate"]) * up
     elif act == "gelu":
         h = F.gelu(up, approximate="tanh")
     else:

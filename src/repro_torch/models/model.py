@@ -1,5 +1,6 @@
-"""Top-level model API (PyTorch port of ``repro.models.model``), dense
-serving subset:
+"""Top-level model API (PyTorch port of ``repro.models.model``), serving
+subset, for the dense and MoE stacks (``transformer.layer_kinds``) with
+full or sliding-window attention:
 
   * ``init_params(cfg, generator, device)``           parameter dict
   * ``prefill`` / ``decode_step``                     ring cache (batch mode,
@@ -12,7 +13,9 @@ serving subset:
   * ``prefill_chunk``                                 one chunk of one prompt
 
 Caches are updated IN PLACE (the reference returns new caches); each
-function returns only its outputs.  ``decode_steps`` and
+function returns only its outputs, and like the reference's serving
+functions none returns the MoE aux losses (``transformer.apply_stack``
+does).  ``decode_steps`` and
 ``decode_steps_paged`` replace the reference's ``lax.scan`` with a Python
 loop whose tokens stay on the device, so a window costs no host round
 trip.  The functions the engine captures in CUDA graphs (both decode
@@ -30,8 +33,9 @@ from . import layers, transformer
 def init_params(cfg, generator: torch.Generator, device,
                 dtype=None) -> dict:
     """Seeded random parameters at the reference's init scales (dense
-    0.02, embedding 1/sqrt(D), norms zero).  ``generator`` must live on
-    ``device``; ``dtype`` defaults to ``cfg.param_dtype``."""
+    0.02, embedding 1/sqrt(D), norms zero; MoE routers in float32).
+    ``generator`` must live on ``device``; ``dtype`` defaults to
+    ``cfg.param_dtype``."""
     dtype = dtype or getattr(torch, cfg.param_dtype)
     return {
         "embed": layers.init_embedding(generator, cfg, dtype, device),
@@ -54,21 +58,22 @@ def _final_logits(params, cfg, x):
 def prefill(params: dict, cfg, tokens: torch.Tensor, max_len: int,
             cache_dtype=torch.bfloat16):
     """Run the (B, S) prompt through the stack, building a ring cache of
-    capacity ``max_len``.  Returns (cache, last_logits (B, V) f32)."""
+    capacity ``min(window, max_len)``.  Returns (cache, last_logits (B, V)
+    f32)."""
     B, S = tokens.shape
     x = layers.embed(params["embed"], tokens, cfg)
     cache = transformer.init_cache(cfg, B, max_len, cache_dtype,
                                    tokens.device)
     positions = torch.arange(S, device=tokens.device)
-    x = transformer.apply_stack(params["layers"], x,
-                                {"positions": positions}, cfg, cache,
-                                "prefill")
+    x, _ = transformer.apply_stack(params["layers"], x,
+                                   {"positions": positions}, cfg, cache,
+                                   "prefill")
     last_logits = _final_logits(params, cfg, x[:, -1:])[:, 0]
     # a fill, not a host-to-device copy of a Python int: a CUDA graph
     # captures this function (the engine's stall admission)
     cache["pos"] = torch.full((), S, dtype=torch.int32, device=tokens.device)
-    cache["slot_pos"] = transformer.prefill_slot_pos(max_len, S,
-                                                     tokens.device)
+    cache["slot_pos"] = transformer.prefill_slot_pos(
+        cache["slot_pos"].shape[0], S, tokens.device)
     return cache, last_logits
 
 
@@ -81,8 +86,8 @@ def decode_step(params: dict, cfg, cache: dict, token: torch.Tensor):
     (B, V) f32)."""
     x = layers.embed(params["embed"], token, cfg)
     ctx = {"pos": cache["pos"], "slot_pos": cache["slot_pos"]}
-    x = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
-                                "decode")
+    x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
+                                   "decode")
     logits = _final_logits(params, cfg, x)[:, 0]
     next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     cache["pos"] += 1
@@ -142,8 +147,8 @@ def decode_step_paged(params: dict, cfg, cache: dict, token: torch.Tensor,
     returns (next_token (B, 1) i32, logits (B, V) f32)."""
     x = layers.embed(params["embed"], token, cfg)
     ctx = {"pos": cache["pos"], "tables": tables, "use_kernels": use_kernels}
-    x = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
-                                "decode_paged")
+    x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
+                                   "decode_paged")
     logits = _final_logits(params, cfg, x)[:, 0]
     next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     cache["pos"] += 1
@@ -195,8 +200,8 @@ def prefill_chunks(params: dict, cfg, cache: dict, tokens: torch.Tensor,
            "local": local, "valid": valid, "meta": meta,
            "table_rows": tables.to(torch.int32), "chunk_pad": chunk_pad,
            "use_kernels": use_kernels}
-    x = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
-                                "chunks")
+    x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
+                                   "chunks")
     last_idx = torch.clamp(q_off + torch.clamp(lens, min=1) - 1, 0, TT - 1)
     last_logits = _final_logits(params, cfg, x[:, last_idx.long()])[0]
     # the reference drops the pos update of padding chunks (slot out of
@@ -230,9 +235,9 @@ def prefill_chunk(params: dict, cfg, cache: dict, tokens: torch.Tensor,
     positions = (torch.as_tensor(ctx_len, dtype=torch.int32, device=dev)
                  + torch.arange(T, dtype=torch.int32, device=dev))
     x = layers.embed(params["embed"], tokens, cfg)
-    x = transformer.prefill_chunk_paged(params["layers"], x, positions,
-                                        table_row.to(torch.int32), cfg,
-                                        cache, use_kernels)
+    x, _ = transformer.prefill_chunk_paged(params["layers"], x, positions,
+                                           table_row.to(torch.int32), cfg,
+                                           cache, use_kernels)
     last_logits = _final_logits(params, cfg, x[:, -1:])[0, 0]
     cache["pos"][slot] = positions[-1] + 1
     return last_logits

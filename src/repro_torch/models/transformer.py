@@ -1,19 +1,22 @@
-"""Dense decoder stack (PyTorch port of ``repro.models.transformer``).
+"""Decoder stacks of the attention-only families (PyTorch port of
+``repro.models.transformer``): dense and MoE, with full or sliding-window
+attention.
 
-Only the dense kinds the serving path needs are ported.  A list of
-per-layer parameter dicts replaces the reference's ``scan0`` stacking, and
-caches hold one entry per layer:
+The reference's stack layout (``stack_pattern``: the dense prefix, the
+scanned groups, the tail) is kept as a flat list of per-layer parameter
+dicts, each layer of the kind ``layer_kinds`` gives it, and caches hold
+one entry per layer:
 
   * the contiguous ring cache of batch mode and the bulk lane
     (``init_cache``): ``{"layers": [{"k", "v"}], "pos": scalar,
-    "slot_pos": (W,)}``;
+    "slot_pos": (W,)}``, of capacity ``W = min(window, max_len)``;
   * the per-slot ring cache of the contiguous continuous engine
     (``init_slot_cache``): the same layers with ``pos`` (C,) and
     ``slot_pos`` (C, W), one independent sequence a row;
   * the paged cache of the paged continuous engine
-    (``init_paged_cache``): ``{"layers": [{"k", "v"}], "pos":
-    (num_slots,)}`` with page pools of shape ``(num_blocks, block_size,
-    KV, D)``.
+    (``init_paged_cache``, full attention only): ``{"layers": [{"k",
+    "v"}], "pos": (num_slots,)}`` with page pools of shape
+    ``(num_blocks, block_size, KV, D)``.
 
 Both caches are updated IN PLACE by the functions below (the reference
 returns new pytrees).  The paged attention layers (decode, the fused
@@ -23,6 +26,9 @@ take their plain versions only for CPU tensors) or the plain path of the
 reference's ``use_pallas=False`` branch (gather the logical view, then
 ``layers.decode_attention`` / ``chunked_attention``), which the engine runs
 on the CPU.
+
+The recurrent, multimodal and encoder-decoder families are not ported yet
+(``check_ported``).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from ..kernels import chunked_prefill_attention as cpa_kernel
 from ..kernels import paged_decode_attention as pfd_kernel
 from ..kernels import ragged_chunked_prefill as rcp_kernel
 from ..kvcache import paged as paged_lib
-from . import layers
+from . import layers, moe as moe_lib
 from .layers import rms_norm
 
 EMPTY_POS = 2**30
@@ -47,27 +53,62 @@ EMPTY_POS = 2**30
 # ---------------------------------------------------------------------------
 
 
-def _check_dense(cfg) -> None:
-    if cfg.family != "dense" or cfg.window is not None or cfg.frontend:
+# the families still to port, and their ROADMAP items
+_UNPORTED = {"ssm": "9c", "hybrid": "9d", "vlm": "9e", "encdec": "9f"}
+
+
+def check_ported(cfg) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for a family
+    the port does not serve yet (any ``frontend`` is item 9e's)."""
+    item = _UNPORTED.get(cfg.family) or ("9e" if cfg.frontend else None)
+    if item is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only dense full-attention stacks are ported "
-            "(ROADMAP Queue 1 item 9: the other model families)")
+            f"{cfg.name}: the {cfg.family!r} family is not ported to "
+            f"PyTorch yet (ROADMAP Queue 1 item {item})")
 
 
-def init_attn_mlp_block(generator, cfg, dtype, device) -> dict:
-    return {
+def stack_pattern(cfg):
+    """(pattern, n_repeats, prefix_kinds, tail_kinds) of the reference
+    (transformer.py:513) for the ported families: MoE stacks lead with
+    ``num_dense_layers`` dense layers."""
+    check_ported(cfg)
+    if cfg.family == "moe":
+        return (("moe",), cfg.num_layers - cfg.num_dense_layers,
+                ("dense",) * cfg.num_dense_layers, ())
+    return ("dense",), cfg.num_layers, (), ()
+
+
+def layer_kinds(cfg) -> tuple:
+    """Every layer's kind, in the order of the port's flat layer list:
+    the prefix, the pattern repeated, the tail."""
+    pat, n, prefix, tail = stack_pattern(cfg)
+    return prefix + pat * n + tail
+
+
+def kv_cache_capacity(max_len: int, window: Optional[int]) -> int:
+    """A ring's rows: a sliding window needs only its last ``window``."""
+    return min(window, max_len) if window else max_len
+
+
+def init_attn_mlp_block(generator, cfg, dtype, device, *,
+                        use_moe: bool = False) -> dict:
+    p = {
         "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
         "attn": layers.init_attention(generator, cfg, dtype, device),
         "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
-        "mlp": layers.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                               cfg.mlp_act, dtype, device),
     }
+    if use_moe:
+        p["moe"] = moe_lib.init_moe(generator, cfg, dtype, device)
+    else:
+        p["mlp"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                   cfg.mlp_act, dtype, device)
+    return p
 
 
 def init_stack(generator, cfg, dtype, device) -> list:
-    _check_dense(cfg)
-    return [init_attn_mlp_block(generator, cfg, dtype, device)
-            for _ in range(cfg.num_layers)]
+    return [init_attn_mlp_block(generator, cfg, dtype, device,
+                                use_moe=kind == "moe")
+            for kind in layer_kinds(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -77,15 +118,17 @@ def init_stack(generator, cfg, dtype, device) -> list:
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> dict:
-    """``device=None`` means the card (raises when none is present)."""
-    _check_dense(cfg)
+    """A ring of ``kv_cache_capacity(max_len, cfg.window)`` rows a layer.
+    ``device=None`` means the card (raises when none is present)."""
+    check_ported(cfg)
     device = resolve_device(device)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    cap = kv_cache_capacity(max_len, cfg.window)
+    shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
     return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
                         "v": torch.zeros(shape, dtype=dtype, device=device)}
                        for _ in range(cfg.num_layers)],
             "pos": torch.zeros((), dtype=torch.int32, device=device),
-            "slot_pos": torch.full((max_len,), EMPTY_POS, dtype=torch.int32,
+            "slot_pos": torch.full((cap,), EMPTY_POS, dtype=torch.int32,
                                    device=device)}
 
 
@@ -138,7 +181,8 @@ def init_slot_cache(cfg, num_slots: int, max_len: int,
                     dtype=torch.bfloat16, device=None) -> dict:
     """A ring cache whose ``pos`` (C,) and ``slot_pos`` (C, W) are kept
     per slot, so each row runs an independent sequence (the contiguous
-    continuous engine).  ``device=None`` means the card."""
+    continuous engine); W as ``init_cache``.  ``device=None`` means the
+    card."""
     cache = init_cache(cfg, num_slots, max_len, dtype, device)
     dev = cache["pos"].device
     cache["pos"] = torch.zeros((num_slots,), dtype=torch.int32, device=dev)
@@ -187,7 +231,6 @@ def init_paged_cache(cfg, num_slots: int, num_blocks: int, block_size: int,
     ok, why = paged_supported(cfg)
     if not ok:
         raise NotImplementedError(f"paged KV cache: {why}")
-    _check_dense(cfg)
     device = resolve_device(device)
     shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
     return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -224,20 +267,29 @@ def copy_paged_block(cache: dict, src, dst) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _attn_seq(p, x, positions, cfg):
-    """Full-sequence causal self attention (bulk-lane prefill)."""
+def _attn_seq(p, x, positions, cfg, window):
+    """Full-sequence causal self attention (a prefill into a ring): the
+    sliding-window scheme when ``window`` is shorter than the sequence,
+    as the reference (transformer.py:149)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = layers.attention_qkv(p["attn"], h, positions, cfg.rope_theta)
-    attn = layers.chunked_attention(q, k, v, q_positions=positions,
-                                    kv_positions=positions, causal=True)
+    if window is not None and window < x.shape[1]:
+        attn = layers.windowed_attention(q, k, v, q_positions=positions,
+                                         kv_positions=positions,
+                                         window=window)
+    else:
+        attn = layers.chunked_attention(q, k, v, q_positions=positions,
+                                        kv_positions=positions, causal=True,
+                                        window=window)
     return x + layers.attention_out(p["attn"], attn), k, v
 
 
-def _attn_decode(p, x, cache_k, cache_v, pos, slot_pos, cfg):
+def _attn_decode(p, x, cache_k, cache_v, pos, slot_pos, cfg, window):
     """One-token self attention against the ring cache: scalar ``pos``
     with (W,) ``slot_pos`` (batch mode), or (B,) ``pos`` with (B, W)
     ``slot_pos`` (per-slot, every row its own sequence); writes K/V and
-    ``slot_pos`` in place."""
+    ``slot_pos`` in place.  Keys more than ``window`` back are masked
+    (a wrapped ring has overwritten most of them already)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = layers.attention_qkv(p["attn"], h, pos[..., None],
                                    cfg.rope_theta)
@@ -250,7 +302,8 @@ def _attn_decode(p, x, cache_k, cache_v, pos, slot_pos, cfg):
         slot_pos[pos.long() % Wc] = pos
     valid = torch.clamp(pos + 1, max=Wc)
     attn = layers.decode_attention(q, cache_k, cache_v, q_position=pos,
-                                   kv_positions=slot_pos, valid_len=valid)
+                                   kv_positions=slot_pos, valid_len=valid,
+                                   window=window)
     return x + layers.attention_out(p["attn"], attn)
 
 
@@ -371,26 +424,35 @@ def _mlp_part(p, x, cfg):
                                 cfg.mlp_act)
 
 
+def _moe_part(p, x, cfg):
+    y, aux = moe_lib.apply_moe(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                               cfg)
+    return x + y, aux
+
+
 # ---------------------------------------------------------------------------
 # stack application
 # ---------------------------------------------------------------------------
 
 
 def apply_stack(stack: list, x: torch.Tensor, ctx: dict, cfg,
-                cache: Optional[dict], mode: str) -> torch.Tensor:
+                cache: Optional[dict], mode: str):
     """Run every layer; ``mode`` is ``prefill`` (fills a ring cache),
     ``decode`` (a ring cache, batch or per-slot), ``decode_paged``,
-    ``chunk`` or ``chunks`` (the paged cache).  Caches are updated in place; returns
-    the hidden states."""
-    for i, p in enumerate(stack):
+    ``chunk`` or ``chunks`` (the paged cache).  Caches are updated in
+    place.  Returns (hidden states, aux): the MoE layers' ``moe_aux_loss``
+    and ``moe_drop_frac`` summed over the layers, as the reference's
+    ``apply_stack``; 0.0 for a stack without MoE layers."""
+    aux = {"moe_aux_loss": 0.0, "moe_drop_frac": 0.0}
+    for i, (kind, p) in enumerate(zip(layer_kinds(cfg), stack)):
         lc = cache["layers"][i] if cache is not None else None
         if mode == "prefill":
-            x, k, v = _attn_seq(p, x, ctx["positions"], cfg)
+            x, k, v = _attn_seq(p, x, ctx["positions"], cfg, cfg.window)
             if lc is not None:
                 prefill_write_kv(lc["k"], lc["v"], k, v)
         elif mode == "decode":
             x = _attn_decode(p, x, lc["k"], lc["v"], ctx["pos"],
-                             ctx["slot_pos"], cfg)
+                             ctx["slot_pos"], cfg, cfg.window)
         elif mode == "decode_paged":
             x = _attn_decode_paged(p, x, lc["k"], lc["v"], ctx["pos"],
                                    ctx["tables"], cfg, ctx["use_kernels"])
@@ -401,21 +463,25 @@ def apply_stack(stack: list, x: torch.Tensor, ctx: dict, cfg,
             x = _attn_chunks_paged(p, x, lc["k"], lc["v"], ctx, cfg)
         else:
             raise ValueError(f"unknown mode {mode!r}")
-        x = _mlp_part(p, x, cfg)
-    return x
+        if kind == "moe":
+            x, a = _moe_part(p, x, cfg)
+            aux = {k: aux[k] + a[k] for k in aux}
+        else:
+            x = _mlp_part(p, x, cfg)
+    return x, aux
 
 
 def prefill_chunk_paged(stack: list, x: torch.Tensor,
                         positions: torch.Tensor, table_row: torch.Tensor,
-                        cfg, cache: dict, use_kernels: bool) -> torch.Tensor:
+                        cfg, cache: dict, use_kernels: bool):
     """Run ONE prompt chunk through the stack against the paged cache.
 
     x (1, T, D) embedded chunk; positions (T,) i32 its absolute positions
     ``ctx_len .. ctx_len + T - 1``; table_row (nb,) i32.  Every layer
     scatters the chunk's K/V into its page pools (in place) and attends
-    full over the prefix, causal within the chunk.  Returns the hidden
-    states; the caller (``model.prefill_chunk``) owns the final norm,
-    logits and ``pos``."""
+    full over the prefix, causal within the chunk.  Returns (hidden
+    states, aux) as ``apply_stack``; the caller (``model.prefill_chunk``)
+    owns the final norm, logits and ``pos``."""
     ctx = {"positions": positions, "table_row": table_row,
            "use_kernels": use_kernels}
     return apply_stack(stack, x, ctx, cfg, cache, "chunk")

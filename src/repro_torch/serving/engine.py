@@ -1,6 +1,9 @@
 """Real-time serving engine: RT-LM scheduling over the PyTorch model.
 
-Port of ``repro.serving.engine`` on dense full-attention stacks.  A
+Port of ``repro.serving.engine`` on the attention-only stacks: dense and
+MoE, full attention on every row, sliding-window attention on the
+contiguous rows (the paged cache refuses a window, as the reference's
+``transformer.paged_supported`` does).  A
 request goes through RULEGEN features and the m_theta uncertainty ``u``,
 then UASCHED priority and admission (a request the policy offloads goes
 to the bulk lane), and runs in one of the reference's two modes:
@@ -63,7 +66,7 @@ across the failover rounds of ``serving.replica.ReplicatedEngine``.  With
 no plan the result carries no fault key.
 
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-item: non-dense model families.
+item: the ssm, hybrid, vlm and encdec families (items 9c-9f).
 """
 
 from __future__ import annotations
@@ -153,11 +156,6 @@ def _index(i: int) -> np.ndarray:
     return np.array([i], np.int32)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP {item})")
-
-
 class ServingEngine:
     """Single-node engine with a pluggable scheduling policy.
 
@@ -231,10 +229,9 @@ class ServingEngine:
             raise ValueError('faults (serving.faults.ReplicaFaults) '
                              'require mode="continuous", '
                              'prefill="stall"')
-        # what the port does not serve yet
-        if cfg.family != "dense":
-            raise _not_ported(f"model family {cfg.family!r}",
-                              "Queue 1 item 9")
+        # what the port does not serve yet: the recurrent, multimodal and
+        # encoder-decoder families
+        transformer.check_ported(cfg)
         emb = params["embed"]["embedding"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params on {emb.device}, engine device "

@@ -43,7 +43,20 @@ def test_cuda_paged_decode_kernel_matches_plain(cuda, monkeypatch, bs, nb,
     that aims at 3 splits (as many as the table has tiles, where fewer):
     splits wholly past a short sequence write empty partials.  bs 48
     does not divide the 64-slot tile."""
-    B, H, KV = 4, 24, 2
+    _check_paged_decode(cuda, monkeypatch, 4, 24, 2, D, bs, nb, n_splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits", [0, 3])
+@pytest.mark.parametrize("bs,nb", [(16, 6), (16, 20), (48, 7)])
+def test_cuda_paged_decode_kernel_matches_plain_at_kimi_heads(
+        cuda, monkeypatch, bs, nb, n_splits):
+    """The same cases at kimi-k2-1t-a32b's attention shape on the engine
+    path: 16 slots, D 112, H 64, KV 8 (ROADMAP K5)."""
+    _check_paged_decode(cuda, monkeypatch, 16, 64, 8, 112, bs, nb, n_splits)
+
+
+def _check_paged_decode(cuda, monkeypatch, B, H, KV, D, bs, nb, n_splits):
     N = B * nb + 1
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((B, H, D), generator=g, device=cuda).bfloat16()
@@ -51,7 +64,8 @@ def test_cuda_paged_decode_kernel_matches_plain(cuda, monkeypatch, bs, nb,
     vp = torch.randn((N, bs, KV, D), generator=g, device=cuda).bfloat16()
     tab = torch.randperm(N - 1, generator=g, device=cuda)[:B * nb].view(
         B, nb).int()
-    lens = torch.tensor([0, 1, 37, nb * bs], dtype=torch.int32, device=cuda)
+    lens = torch.tensor(([0, 1, 37, nb * bs] * B)[:B], dtype=torch.int32,
+                        device=cuda)
     n_tiles = -(-nb * bs // tfd.TILE)
     if n_splits:
         groups = B * KV * -(-(H // KV) // tfd.ROW_BLOCK)
@@ -113,7 +127,9 @@ def _trash_past(tab, last_pos, bs):
 RAGGED_CASES = [("original", 16, 128, 24, 2, 3)] + [
     ("cycled", bs, D, H, KV, C) for bs in (16, 48)
     for D in (64, 112, 120, 128, 256) for H, KV in ((24, 2), (4, 4))
-    for C in (3, 16)]
+    for C in (3, 16)] + [
+    # kimi-k2-1t-a32b's attention shape on the engine path (ROADMAP K5)
+    ("cycled", 16, 112, 64, 8, C) for C in (3, 16)]
 
 
 @pytest.mark.cuda

@@ -608,19 +608,9 @@ def test_replicated_engine_validates_the_plan(setup):
 # ---------------------------------------------------------------------------
 
 
-class _PortScores:
-    """The port's m_theta in the reference profile's predictor slot."""
-
-    def __init__(self, predictor):
-        self.predictor = predictor
-
-    def score(self, text: str) -> float:
-        return self.predictor.score(text)
-
-
 def _jax_profile(s):
     return dataclasses.replace(s["jprof"],
-                               predictor=_PortScores(s["tprof"].predictor))
+                               predictor=es.PortScores(s["tprof"].predictor))
 
 
 def _jax_pool(s, policy_name, R, plan_kw, caps, classes=None, slo=None):

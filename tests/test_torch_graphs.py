@@ -2,7 +2,8 @@
 
   * capture safety — every function the continuous engine captures (both
     decode windows, both stall admissions, the copy-on-write page copy,
-    the fused ragged prefill) runs at the smoke size on the ``meta``
+    the fused ragged prefill), on the dense, MoE and sliding-window smoke
+    models, and the MoE layer alone, runs at the smoke size on the ``meta``
     device, which stands in for the card, under a ``TorchFunctionMode``
     and a ``TorchDispatchMode`` that fail on any operation a capture
     forbids: a read of a device value on the host
@@ -29,6 +30,7 @@ The card's side (graphed against eager, bit for bit) is in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -51,6 +53,7 @@ from repro_torch.kernels import paged_decode_attention as tpfd  # noqa: E402
 from repro_torch.kernels import ragged_chunked_prefill as trcp  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
 from repro_torch.serving import generate as tgen  # noqa: E402
@@ -176,7 +179,8 @@ def _graphed_calls(cfg, params):
     """name -> (fn, args, kwargs) of every function the engine captures,
     with the engine's argument forms: 1-element index tensors, int32
     tables and metadata."""
-    paged = tt.init_paged_cache(cfg, C, C * NB + 1, BS, device=DEVICE)
+    paged = (tt.init_paged_cache(cfg, C, C * NB + 1, BS, device=DEVICE)
+             if tt.paged_supported(cfg)[0] else None)
     ring = tt.init_slot_cache(cfg, C, W, device=DEVICE)
     TTp, Cp, Tp = 8, 2, 4
     return {
@@ -206,6 +210,47 @@ def test_graphed_functions_are_capture_safe(meta_model, stub_kernels,
                                             name):
     fn, args, kwargs = _graphed_calls(*meta_model)[name]
     capture_safe(fn, *args, **kwargs)
+
+
+@pytest.fixture(scope="module")
+def family_models():
+    """The MoE and sliding-window smoke models on the ``meta`` device;
+    the windows cut to 4 so the S = 8 admission prefill runs the
+    windowed attention and wraps the ring."""
+    out = {}
+    for name in ("kimi-k2-1t-a32b", "mixtral-8x22b", "h2o-danube-3-4b"):
+        cfg = configs.get_smoke_config(name)
+        if cfg.window:
+            cfg = dataclasses.replace(cfg, window=4)
+        params = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        out[name] = (cfg, _to_meta(params))
+    return out
+
+
+@pytest.mark.parametrize("name,call", [
+    ("kimi-k2-1t-a32b", "window paged"), ("kimi-k2-1t-a32b", "window ring"),
+    ("kimi-k2-1t-a32b", "admit paged"), ("kimi-k2-1t-a32b", "admit ring"),
+    ("kimi-k2-1t-a32b", "ragged"), ("mixtral-8x22b", "window ring"),
+    ("mixtral-8x22b", "admit ring"), ("h2o-danube-3-4b", "window ring"),
+    ("h2o-danube-3-4b", "admit ring")])
+def test_moe_and_window_steps_are_capture_safe(family_models, stub_kernels,
+                                               name, call):
+    """MoE routing (router, stable sorts, searchsorted, the capacity
+    plan, the spare-row dispatch, the fixed-order combine) and the
+    windowed prefill and ring decode read nothing back on the host, so
+    the engine's graphs capture them."""
+    fn, args, kwargs = _graphed_calls(*family_models[name])[call]
+    capture_safe(fn, *args, **kwargs)
+
+
+@pytest.mark.parametrize("S", [1, 8, 40])
+def test_moe_layer_is_capture_safe(family_models, S):
+    cfg, params = family_models["kimi-k2-1t-a32b"]
+    moe = [p["moe"] for p in params["layers"] if "moe" in p][0]
+    x = torch.zeros((2, S, cfg.d_model), dtype=torch.bfloat16, device=DEVICE)
+    out, aux = capture_safe(tmoe.apply_moe_local, moe, x, cfg)
+    assert out.shape == x.shape and out.device.type == DEVICE
+    assert all(a.device.type == DEVICE for a in aux.values())
 
 
 def _old_prefill_pos(S):

@@ -82,16 +82,6 @@ def make_obs(mod):
                              snapshot_every_steps=2)
 
 
-class _PortScores:
-    """The port's m_theta in the reference profile's predictor slot."""
-
-    def __init__(self, predictor):
-        self.predictor = predictor
-
-    def score(self, text: str) -> float:
-        return self.predictor.score(text)
-
-
 @pytest.fixture(scope="module")
 def setup():
     s = es.make_setup()
@@ -121,7 +111,7 @@ def _jax(s, policy_name, tau, texts, own_u=False, **kw):
     eng = es.jax_engine(s, policy_name, tau, obs=ob, **kw)
     if not own_u:
         eng.profile = dataclasses.replace(
-            eng.profile, predictor=_PortScores(s["tprof"].predictor))
+            eng.profile, predictor=es.PortScores(s["tprof"].predictor))
     res = eng.serve(es.requests(jengine, texts, classes=CLS))
     return eng, res, ob
 
@@ -327,7 +317,7 @@ def test_persistent_prefix_cache_two_serves(setup):
     eng = es.port_engine(setup, "fifo", **PERSIST)
     jeng = es.jax_engine(setup, "fifo", **PERSIST)
     jeng.profile = dataclasses.replace(
-        jeng.profile, predictor=_PortScores(setup["tprof"].predictor))
+        jeng.profile, predictor=es.PortScores(setup["tprof"].predictor))
     state = simulator.make_prefix_state(eng.kv_num_blocks, es.BS)
     views = []
     for k in range(2):

@@ -1,7 +1,10 @@
 """Shared setup of the PyTorch port's engine parity tests
-(``tests/test_torch_engine_modes.py``, ``tests/test_torch_prefix.py``).
+(``tests/test_torch_engine_modes.py``, ``tests/test_torch_prefix.py``,
+``tests/test_torch_moe_engine.py``, ``tests/test_torch_window_engine.py``
+and others).
 
-One float32 smoke model in both frameworks (the port's weights are the
+One float32 smoke model (starcoder2-3b unless another is named) in both
+frameworks (the port's weights are the
 reference's, copied bit for bit), an m_theta trained by the reference and
 carried into the port, the test corpus, and helpers that make requests,
 engines and simulator tasks.  The simulator is fed the port's own ``u``, so a
@@ -43,10 +46,16 @@ def cfg32(name: str = "starcoder2-3b"):
                                compute_dtype="float32")
 
 
-def make_setup() -> dict:
-    cfg = cfg32()
+def models(name: str) -> dict:
+    """One float32 smoke model in both frameworks: ``cfg``, ``jp``,
+    ``tp``."""
+    cfg = cfg32(name)
     jp = jm.init_params(jax.random.PRNGKey(0), cfg)
     tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    return dict(cfg=cfg, jp=jp, tp=tp)
+
+
+def make_setup(name: str = "starcoder2-3b") -> dict:
     corpus = datagen.generate_corpus(datagen.VARIANCE_MIXES["normal"], 64,
                                      seed=0)
     train, test = datagen.train_test_split(corpus, train_frac=0.5)
@@ -61,7 +70,7 @@ def make_setup() -> dict:
             jax.tree.map(np.asarray, pred.params), pred.mean, pred.std,
             "cpu"),
         tau=jprof.tau, u_scale=jprof.u_scale, persona_name="bart")
-    return dict(cfg=cfg, jp=jp, tp=tp, texts=[t.text for t in test],
+    return dict(models(name), texts=[t.text for t in test],
                 jpersona=jpersona, tpersona=tpersona, jprof=jprof,
                 tprof=tprof)
 
@@ -82,6 +91,16 @@ def port_policy(s, name: str, tau: float = 1e18):
 def jax_policy(s, name: str, tau: float = 1e18):
     pcfg = dataclasses.replace(s["jprof"].policy_config(), tau=tau)
     return jsched.POLICIES[name](s["jpersona"], pcfg)
+
+
+class PortScores:
+    """The port's m_theta in the reference profile's predictor slot."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+
+    def score(self, text: str) -> float:
+        return self.predictor.score(text)
 
 
 def port_engine(s, policy_name: str, tau: float = 1e18, **kw):
@@ -117,12 +136,12 @@ def sim_tasks(s, texts, caps=CAPS, classes=None):
     return out
 
 
-def prompt_tokens_fn(cfg):
+def prompt_tokens_fn(cfg, bucket: int = BUCKET):
     """The engine's admission bucket, for
     ``simulate_continuous(prompt_tokens=...)``."""
     def fn(task):
         return jengine.tokenize_padded(task.task.text, cfg.vocab_size,
-                                       BUCKET)
+                                       bucket)
     return fn
 
 
@@ -157,10 +176,12 @@ def assert_kv(tlayers, jstate, cfg):
     apart (ROADMAP Queue 3 entry 1: XLA and PyTorch sum the float32
     projections in other orders, so a value at a rounding boundary can
     round the other way)."""
-    for i in range(cfg.num_layers):
+    jlayers = convert.stack_layers(jstate, cfg)
+    assert len(tlayers) == len(jlayers) == cfg.num_layers
+    for tl, jl in zip(tlayers, jlayers):
         for kv in ("k", "v"):
-            a = tlayers[i][kv]
-            b = np.asarray(jstate["scan0"][kv][i])
+            a = tl[kv]
+            b = np.asarray(jl[kv])
             diff = a.view(torch.int16).numpy() != b.view(np.int16)
             assert diff.mean() < 0.1, (i, kv, int(diff.sum()))
             np.testing.assert_allclose(a.float().numpy(),
