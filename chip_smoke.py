@@ -2010,6 +2010,9 @@ def family_serves(torch, label: str, cfg, make_engine, requests, caps,
         else:
             row["moe_drop_frac"] = (drops.summary() if cfg.family == "moe"
                                     else None)
+            if cfg.family == "moe" and row["moe_drop_frac"]["calls"] == 0:
+                fail(f"{label}: the eager serve recorded no MoE prefill "
+                     "(moe.apply_moe_local is no longer the routed call)")
         if eng.allocator is not None:
             eng.allocator.check_no_leaks()
         out[mode] = row

@@ -11,9 +11,7 @@ against the JAX engine's:
   * the attention paths take scores in float32 and cast the probabilities
     to the value dtype before the P·V product (bf16 pages make that a
     rounding step the reference has too);
-  * ``apply_mlp`` uses the tanh GELU, ``jax.nn.gelu``'s default, and
-    ``silu`` op by op as ``jax.nn.silu`` (each step rounded to bf16 on
-    bf16 inputs, which the bf16 MoE layer matches bit for bit);
+  * ``apply_mlp`` uses the tanh GELU, ``jax.nn.gelu``'s default;
   * ``embed`` multiplies by sqrt(D) in the parameter dtype.
 """
 
@@ -279,17 +277,10 @@ def init_mlp(generator, d_model: int, d_ff: int, act: str, dtype,
     return p
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * (1 / (1 + exp(-x)))``, each step in x's dtype: the steps of
-    ``jax.nn.silu``, which rounds after each of them on bf16 inputs
-    (``F.silu`` rounds once)."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     up = x @ params["w_up"]
     if act == "swiglu":
-        h = silu(x @ params["w_gate"]) * up
+        h = F.silu(x @ params["w_gate"]) * up
     elif act == "gelu":
         h = F.gelu(up, approximate="tanh")
     else:

@@ -22,6 +22,7 @@ item 10).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import layers
 
@@ -50,13 +51,10 @@ def _capacity(num_tokens: int, cfg) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def apply_moe(params: dict, x: torch.Tensor, cfg, policy=None):
-    """The reference's dispatcher: the single-device path, or with a
-    sharding ``policy`` the expert-parallel one, which is not ported."""
-    if policy is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE needs the sharding layer, which is not "
-            "ported to PyTorch yet (ROADMAP Queue 1 item 10)")
+def apply_moe(params: dict, x: torch.Tensor, cfg):
+    """The MoE layer as the model calls it: the single-device path.  The
+    reference's expert-parallel path under a sharding policy comes with
+    the port's sharding layer (ROADMAP Queue 1 item 10)."""
     return apply_moe_local(params, x, cfg)
 
 
@@ -111,7 +109,7 @@ def apply_moe_local(params: dict, x: torch.Tensor, cfg):
     xe = x.new_zeros((E * C + 1, D))
     xe.index_copy_(0, slot, xt[sorted_tok] * keep[:, None].to(x.dtype))
     xe = xe[:E * C].reshape(E, C, D)
-    h = layers.silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(
+    h = F.silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(
         xe, params["w_up"])
     ye = torch.bmm(h, params["w_down"]).reshape(E * C, D)
     contrib = ye[torch.where(keep, slot, 0)] * \
