@@ -127,10 +127,29 @@ Phases, in order; any failure exits non-zero:
      of 32, eager and graphed, held as 8a; ``kv="paged"`` must raise the
      reference's refusal of a window.  One ``engine family`` line a
      serve: wall, tokens/s, TTFT / ITL p50 and p99, iterations, launches,
-     capture seconds and the eager serve's prefill drop fractions.  Then
-     the whole run's seconds.
+     capture seconds and the eager serve's prefill drop fractions;
+  9. the recurrent families, each published config whole at full width,
+     alone on the card (phase 8's models freed first).  9a: mamba2-1.3b
+     (48 Mamba-2 layers, 64 SSD heads of 64, state 128, chunk 256): layer
+     0's ``ssd_chunked`` on the inputs the layer gives it for two
+     640-token prompts (three chunks, the last padded), in float32 against
+     the step-by-step float32 recurrence (the reference's own check,
+     within ``SSD_RTOL``) and in bf16 against the same call on the CPU
+     (``kernels/compare.py``'s rule); a prefill of S = 640 tokens plus one
+     decode step against a prefill of S + 1 (logits within phase 3's
+     limit, top-1 equal); then batch mode and continuous stall (N = 4) on
+     16 slots under RT-LM, 16 requests left-padded to 640 with caps of
+     32.  9b: recurrentgemma-9b (38 layers: 12 x (rec, rec, attn_local)
+     + (rec, rec); MQA heads of 256, local window 2048): the decode check
+     at S = 2304, then both rows on 8 slots under FIFO, 8 requests
+     left-padded to 2304, past the window, so the local attention runs
+     its windowed prefill and the rings wrap.  Every serve eager and
+     graphed, held as 8b; ``kv="paged"`` must raise the reference's
+     family refusal.  One ``engine family`` line a serve, plus the
+     ``ssd layer`` and ``decode check`` lines.  Then the whole run's
+     seconds.
 
-Every number of phases 4 to 8, tokens and traces included, also goes to
+Every number of phases 4 to 9, tokens and traces included, also goes to
 ``build/chip_smoke.json``.  Then one JSON line of kernel results
 (each kernel's launches from the path that runs it: decode and ragged
 prefill from phase 4's eager serve, beside them ``launches_d112`` and
@@ -1937,11 +1956,25 @@ def family_model(torch, name: str, layers=None):
             "memory_allocated_bytes": torch.cuda.memory_allocated()}
     cut = ("whole" if layers is None else
            f"depth cut to {cfg.num_layers} of {full.num_layers} layers")
-    print(f"model: {name}, {cut} ({', '.join(info['kinds'])}), d_model "
-          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
-          f"{cfg.head_dim}, window {cfg.window}, experts "
-          f"{cfg.num_experts or '-'} top-{cfg.experts_per_token or '-'}, "
-          f"{info['params'] / 1e9:.3f} B params, "
+    kinds = info["kinds"]
+    kinds = (", ".join(kinds) if len(kinds) <= 4 else
+             f"{kinds[0]} ... {kinds[-1]}: " + ", ".join(
+                 f"{kinds.count(k)} {k}" for k in sorted(set(kinds))))
+    if cfg.family == "ssm":
+        shape = (f"SSD {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+                 f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, conv "
+                 f"{cfg.ssm_conv_width}")
+    elif cfg.family == "hybrid":
+        shape = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                 f"{cfg.head_dim}, local window {cfg.local_window}, lru "
+                 f"width {cfg.lru_width}")
+    else:
+        shape = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                 f"{cfg.head_dim}, window {cfg.window}, experts "
+                 f"{cfg.num_experts or '-'} top-"
+                 f"{cfg.experts_per_token or '-'}")
+    print(f"model: {name}, {cut} ({kinds}), d_model {cfg.d_model}, "
+          f"{shape}, {info['params'] / 1e9:.3f} B params, "
           f"{info['param_bytes'] / 1e9:.2f} GB, init {info['init_s']:.1f} s",
           flush=True)
     return cfg, params, info
@@ -1988,7 +2021,7 @@ class MoeDrops:
 
 def family_serves(torch, label: str, cfg, make_engine, requests, caps,
                   kmods, card: str, profile_graphed: bool = False) -> dict:
-    """One row of phase 8: an eager serve (MoE drops recorded) and a
+    """One row of phases 8 and 9: an eager serve (MoE drops recorded) and a
     graphed one, each on a fresh engine; the graphed must equal the eager
     (tokens and schedule).  ``profile_graphed``: one more graphed serve
     under the profiler, whose engine kernels must have run, by name, as
@@ -2081,19 +2114,17 @@ def run_kimi(torch, F, kmods, inputs, card: str) -> dict:
     return out
 
 
-def run_window_model(torch, name: str, layers, kmods, inputs,
-                     card: str) -> dict:
-    """8b / 8c: WINDOW_REQUESTS prompts left-padded to WINDOW_BUCKET, past
-    the model's window, through each of the model's WINDOW_ROWS eager and
-    graphed; the paged rows must refuse the window as the reference
-    does."""
+def contiguous_serves(torch, cfg, params, rows, bucket: int, n: int,
+                      policy: str, refusal: str, kmods, inputs,
+                      card: str) -> dict:
+    """Phases 8b, 8c and 9: ``n`` corpus prompts left-padded to ``bucket``
+    with caps of FAMILY_MAX_NEW, on ``n`` slots under ``policy``, through
+    each of ``rows`` eager and graphed (``family_serves``); then
+    ``kv="paged"`` must raise the reference's refusal, of which
+    ``refusal`` is part."""
     from repro_torch.serving.engine import Request
-    cfg, params, info = family_model(torch, name, layers)
-    if not cfg.window < WINDOW_BUCKET:
-        fail(f"{name}: window {cfg.window} not below the bucket")
-    persona = dataclasses.replace(inputs["persona"],
-                                  batch_size=WINDOW_REQUESTS)
-    texts = inputs["test"][:WINDOW_REQUESTS]
+    persona = dataclasses.replace(inputs["persona"], batch_size=n)
+    texts = inputs["test"][:n]
 
     def requests():
         return [Request(text=t.text, arrival=0.0, task_id=i,
@@ -2101,25 +2132,38 @@ def run_window_model(torch, name: str, layers, kmods, inputs,
                 for i, t in enumerate(texts)]
 
     def engine(kw):
-        return engine_for(cfg, params, inputs, policy="fifo",
-                          persona=persona, num_slots=WINDOW_REQUESTS,
-                          input_bucket=WINDOW_BUCKET,
+        return engine_for(cfg, params, inputs, policy=policy,
+                          persona=persona, num_slots=n, input_bucket=bucket,
                           max_new_tokens=FAMILY_MAX_NEW, **kw)
 
-    out = {"model": info, "rows": {}}
-    for row, kw in WINDOW_ROWS[name]:
+    out = {"rows": {}}
+    for row, kw in rows:
         out["rows"][row] = family_serves(
-            torch, f"{name} {row}", cfg, lambda kw=kw: engine(kw), requests,
-            [FAMILY_MAX_NEW] * WINDOW_REQUESTS, kmods, card)
+            torch, f"{cfg.name} {row}", cfg, lambda kw=kw: engine(kw),
+            requests, [FAMILY_MAX_NEW] * n, kmods, card)
     try:
         engine(dict(mode="continuous", kv="paged", prefill="stall"))
     except NotImplementedError as e:
         out["paged_refused"] = str(e)
-        if "sliding-window" not in str(e):
-            fail(f"{name}: kv='paged' refused for another reason: {e}")
+        if refusal not in str(e):
+            fail(f"{cfg.name}: kv='paged' refused for another reason: {e}")
     else:
-        fail(f"{name}: kv='paged' was not refused for a windowed config")
+        fail(f"{cfg.name}: kv='paged' was not refused")
     return out
+
+
+def run_window_model(torch, name: str, layers, kmods, inputs,
+                     card: str) -> dict:
+    """8b / 8c: WINDOW_REQUESTS prompts left-padded to WINDOW_BUCKET, past
+    the model's window, through each of the model's WINDOW_ROWS eager and
+    graphed; the paged rows must refuse the window as the reference
+    does."""
+    cfg, params, info = family_model(torch, name, layers)
+    if not cfg.window < WINDOW_BUCKET:
+        fail(f"{name}: window {cfg.window} not below the bucket")
+    return {"model": info, **contiguous_serves(
+        torch, cfg, params, WINDOW_ROWS[name], WINDOW_BUCKET,
+        WINDOW_REQUESTS, "fifo", "sliding-window", kmods, inputs, card)}
 
 
 def run_families(torch, F, kmods, inputs, card: str) -> dict:
@@ -2132,6 +2176,170 @@ def run_families(torch, F, kmods, inputs, card: str) -> dict:
     out["mixtral-8x22b"] = run_window_model(
         torch, "mixtral-8x22b", MIXTRAL_LAYERS, kmods, inputs, card)
     free_card(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the recurrent families
+# ---------------------------------------------------------------------------
+
+#: 9a: mamba2-1.3b's prompts left-padded to 640 tokens (three SSD chunks of
+#: 256, the last padded), 16 slots, RT-LM; 9b: recurrentgemma-9b's to
+#: 2304, past its 2048-token local window, 8 slots, FIFO
+SSM_BUCKET = 640
+HYBRID_BUCKET = 2304
+HYBRID_REQUESTS = 8
+RECURRENT_ROWS = (
+    ("batch", dict(mode="batch", kv="contiguous", prefill="stall")),
+    ("contiguous-stall", dict(mode="continuous", kv="contiguous",
+                              prefill="stall", decode_steps=DECODE_STEPS)))
+#: 9a (i): the float32 chunked scan against the float32 step-by-step
+#: recurrence, elementwise within SSD_RTOL * (|naive| + mean |naive|).  The
+#: reference's segment sums are cumsum differences: over a 256-token chunk
+#: the layer's cumsums of dt * A reach a few hundred, of which float32
+#: keeps ~1e-5, so exp(segsum) carries relative errors up to ~1e-4 (the
+#: step-by-step product does not); 1e-3 leaves ten times that
+SSD_RTOL = 1e-3
+#: the reference's refusal of a recurrent family's paged cache
+#: (src/repro/models/transformer.py:712-714)
+RECURRENT_REFUSAL = ("paged KV cache: family {!r} carries recurrent/cross "
+                     "state the paged cache does not cover")
+
+
+def naive_ssd(torch, x, a, B_, C_):
+    """The reference test's step-by-step recurrence (tests/test_ssm.py):
+    h_t = exp(a_t) h_{t-1} + x_t (x) B_t, y_t = C_t . h_t, float32 on the
+    card, one token a step."""
+    b, s, h, p = x.shape
+    rep = h // B_.shape[2]
+    Bh = B_.float().repeat_interleave(rep, dim=2)
+    Ch = C_.float().repeat_interleave(rep, dim=2)
+    x, a = x.float(), a.float()
+    st = torch.zeros((b, h, p, Bh.shape[-1]), dtype=torch.float32,
+                     device=x.device)
+    ys = []
+    for t in range(s):
+        st = (st * torch.exp(a[:, t])[..., None, None]
+              + x[:, t, :, :, None] * Bh[:, t, :, None, :])
+        ys.append((st * Ch[:, t, :, None, :]).sum(-1))
+    return torch.stack(ys, dim=1), st
+
+
+def check_ssd_layer(torch, cfg, params) -> dict:
+    """9a (i): layer 0's ``ssd_chunked`` at full width on the inputs the
+    layer gives it for two SSM_BUCKET-token prompts (caught from one
+    ``apply_mamba2`` call).  In float32, against the step-by-step float32
+    recurrence (the reference's own check, within SSD_RTOL); in bf16 (the
+    model's: decay factors and carried states rounded to bf16 as the
+    reference rounds them), against the same call on the CPU, where the
+    tests hold the port to JAX (``kernels/compare.py``'s rule).  The bf16
+    scan's distance from the recurrence is reported, not held: it is the
+    reference's bf16 rounding."""
+    from repro_torch.kernels.compare import compare
+    from repro_torch.models import layers, ssm
+    rng = np.random.default_rng(SEED + 9)
+    tokens = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (2, SSM_BUCKET)).astype(np.int32)).to("cuda")
+    p = params["layers"][0]
+    h = layers.rms_norm(layers.embed(params["embed"], tokens, cfg),
+                        p["ln"], cfg.norm_eps)
+    caught, scan = [], ssm.ssd_chunked
+    ssm.ssd_chunked = lambda *a: caught.append(a) or scan(*a)
+    try:
+        ssm.apply_mamba2(p["mixer"], h, cfg)
+    finally:
+        ssm.ssd_chunked = scan
+    (x, a, B_, C_, chunk, _), = caught
+    yn, fn = naive_ssd(torch, x, a, B_, C_)
+    y32, fin32 = scan(x.float(), a, B_.float(), C_.float(), chunk)
+    y, fin = scan(x, a, B_, C_, chunk)
+    yc, finc = scan(*(t.cpu() for t in (x, a, B_, C_)), chunk)
+    torch.cuda.synchronize()
+
+    def share(out, ref):
+        err = (out.float() - ref).abs()
+        return float((err / (SSD_RTOL * (ref.abs() + ref.abs().mean()))
+                      ).max())
+
+    def held(pairs):
+        return {k: dict(zip(("max_abs_err", "limit_share"),
+                            compare(o, r.to(o.device))))
+                for k, o, r in pairs}
+
+    out = {"shape": {"b": x.shape[0], "s": x.shape[1], "h": x.shape[2],
+                     "p": x.shape[3], "g": B_.shape[2], "n": B_.shape[3],
+                     "chunk": chunk, "chunks": -(-x.shape[1] // chunk)},
+           "x_dtype": str(x.dtype), "a_min": float(a.min()),
+           "y_scale": float(yn.abs().max()),
+           "f32_vs_recurrence_share": {"y": share(y32, yn),
+                                       "final": share(fin32, fn)},
+           "bf16_vs_cpu": held((("y", y, yc), ("final", fin, finc))),
+           "bf16_vs_recurrence": held((("y", y, yn), ("final", fin, fn)))}
+    if not max(out["f32_vs_recurrence_share"].values()) <= 1.0:
+        fail(f"ssd layer: the float32 scan is off the recurrence: {out}")
+    if not max(v["limit_share"] for v in out["bf16_vs_cpu"].values()) \
+            <= 1.0:
+        fail(f"ssd layer: the bf16 scan on the card is off the CPU's: {out}")
+    return out
+
+
+def check_decode_continues_prefill(torch, cfg, params, S: int) -> dict:
+    """9a / 9b (ii): two prompts of S tokens prefilled, then one decode
+    step of token S + 1, against one prefill of all S + 1 tokens: last
+    logits within LOGIT_ATOL, the same top-1 (phase 3's limit)."""
+    from repro_torch.models import model as model_lib
+    rng = np.random.default_rng(SEED + 10)
+    toks = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (2, S + 1)).astype(np.int32)).to("cuda")
+    max_len = S + 1 + 8
+    _, want = model_lib.prefill(params, cfg, toks, max_len)
+    cache, _ = model_lib.prefill(params, cfg, toks[:, :S], max_len)
+    _, got = model_lib.decode_step(params, cfg, cache, toks[:, S:])
+    # the padded vocabulary's columns are masked to -1e30 in both
+    want, got = want[:, :cfg.vocab_size], got[:, :cfg.vocab_size]
+    torch.cuda.synchronize()
+    out = {"S": S, "logits_max_abs_err": float((got - want).abs().max()),
+           "logits_scale": float(want.abs().max()),
+           "top1": [got.argmax(-1).tolist(), want.argmax(-1).tolist()]}
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail(f"{cfg.name}: non-finite logits")
+    if out["logits_max_abs_err"] > LOGIT_ATOL:
+        fail(f"{cfg.name}: decode after prefill vs one prefill: {out}")
+    if out["top1"][0] != out["top1"][1]:
+        fail(f"{cfg.name}: decode after prefill changed the top-1: {out}")
+    return out
+
+
+def run_recurrent(torch, kmods, inputs, card: str) -> dict:
+    """Phase 9, one model on the card at a time: 9a mamba2-1.3b whole
+    (the SSD layer check, the decode check, its rows at SSM_BUCKET on
+    phase 4's 16 slots under RT-LM), 9b recurrentgemma-9b whole (the
+    decode check past its window, its rows at HYBRID_BUCKET under
+    FIFO)."""
+    out = {}
+    for name, bucket, n, policy in (
+            ("mamba2-1.3b", SSM_BUCKET, NUM_SLOTS, "rt-lm"),
+            ("recurrentgemma-9b", HYBRID_BUCKET, HYBRID_REQUESTS, "fifo")):
+        cfg, params, info = family_model(torch, name)
+        res = {"model": info}
+        if cfg.family == "ssm":
+            res["ssd_layer"] = check_ssd_layer(torch, cfg, params)
+            print(f"ssd layer {name} [{card}]: "
+                  f"{json.dumps(res['ssd_layer'])}", flush=True)
+        elif not cfg.local_window < bucket:
+            fail(f"{name}: local window {cfg.local_window} not below the "
+                 "bucket")
+        res["decode_check"] = check_decode_continues_prefill(
+            torch, cfg, params, bucket)
+        print(f"decode check {name} [{card}]: "
+              f"{json.dumps(res['decode_check'])}",
+              flush=True)
+        res.update(contiguous_serves(
+            torch, cfg, params, RECURRENT_ROWS, bucket, n, policy,
+            RECURRENT_REFUSAL.format(cfg.family), kmods, inputs, card))
+        out[name] = res
+        del params
+        free_card(torch)
     return out
 
 
@@ -2247,6 +2455,10 @@ def main() -> int:
           flush=True)
     fres = run_families(torch, F, KERNELS[:2], inputs, card)
     record["families"] = fres
+    save_record(record)
+
+    # -- phase 9: the recurrent families, each alone on the card
+    record["recurrent"] = run_recurrent(torch, KERNELS[:2], inputs, card)
     record["run_s"] = time.perf_counter() - started
     save_record(record)
     print(f"chip_smoke: {record['run_s']:.1f} s", flush=True)

@@ -55,14 +55,21 @@ def stack_layers(stack: dict, cfg) -> list:
     return out + [stack[f"tail{i}"] for i in range(len(tail))]
 
 
+#: the leaves the reference keeps in float32 whatever the parameter dtype:
+#: MoE routers, the SSD mixers' decay and skip (ssm.py:34-55) and the
+#: RG-LRU's gate biases and decay (rglru.py:25-44)
+FLOAT32_LEAVES = frozenset({"router", "A_log", "dt_bias", "D", "b_a", "b_i",
+                            "Lambda"})
+
+
 def params_from_numpy(tree: dict, cfg, device, dtype=None) -> dict:
     """The reference's ``model.init_params`` tree (numpy leaves) as the
-    port's parameter dict.  ``dtype`` casts every leaf but the MoE
-    routers, which stay float32 as the reference keeps them."""
+    port's parameter dict.  ``dtype`` casts every leaf but
+    ``FLOAT32_LEAVES``, which stay float32 as the reference keeps them."""
     transformer.check_ported(cfg)
 
     def conv(a, path):
-        keep = path and path[-1] == "router"
+        keep = bool(path) and path[-1] in FLOAT32_LEAVES
         return tensor_from_numpy(a, device, None if keep else dtype)
 
     return {

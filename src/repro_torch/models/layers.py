@@ -12,6 +12,8 @@ against the JAX engine's:
     to the value dtype before the P·V product (bf16 pages make that a
     rounding step the reference has too);
   * ``apply_mlp`` uses the tanh GELU, ``jax.nn.gelu``'s default;
+  * ``gated_rms_norm`` takes the gate's SiLU in float32 and casts it to
+    x's dtype before the product;
   * ``embed`` multiplies by sqrt(D) in the parameter dtype.
 """
 
@@ -27,6 +29,13 @@ import torch.nn.functional as F
 from ..kernels.ref import rms_norm_ref as rms_norm  # noqa: F401
 
 NEG_INF = -1e30
+
+
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Mamba-2's norm, ``rms_norm(x * silu(z))``: the gate in float32,
+    cast to x's dtype before the product, as the reference."""
+    return rms_norm(x * F.silu(z.float()).to(x.dtype), weight, eps)
 
 
 # ---------------------------------------------------------------------------

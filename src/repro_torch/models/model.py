@@ -1,6 +1,7 @@
 """Top-level model API (PyTorch port of ``repro.models.model``), serving
 subset, for the dense and MoE stacks (``transformer.layer_kinds``) with
-full or sliding-window attention:
+full or sliding-window attention, and the recurrent stacks (Mamba-2,
+RG-LRU with local attention) on the contiguous caches:
 
   * ``init_params(cfg, generator, device)``           parameter dict
   * ``prefill`` / ``decode_step``                     ring cache (batch mode,
@@ -33,7 +34,9 @@ from . import layers, transformer
 def init_params(cfg, generator: torch.Generator, device,
                 dtype=None) -> dict:
     """Seeded random parameters at the reference's init scales (dense
-    0.02, embedding 1/sqrt(D), norms zero; MoE routers in float32).
+    0.02, embedding 1/sqrt(D), norms zero; MoE routers, the SSD mixers'
+    ``A_log`` / ``dt_bias`` / ``D`` and the RG-LRU's ``b_a`` / ``b_i`` /
+    ``Lambda`` in float32).
     ``generator`` must live on ``device``; ``dtype`` defaults to
     ``cfg.param_dtype``."""
     dtype = dtype or getattr(torch, cfg.param_dtype)
@@ -85,6 +88,7 @@ def decode_step(params: dict, cfg, cache: dict, token: torch.Tensor):
     Updates ``cache`` in place; returns (next_token (B, 1) i32, logits
     (B, V) f32)."""
     x = layers.embed(params["embed"], token, cfg)
+    transformer.decode_slot_pos(cache["slot_pos"], cache["pos"])
     ctx = {"pos": cache["pos"], "slot_pos": cache["slot_pos"]}
     x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
                                    "decode")

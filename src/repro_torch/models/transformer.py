@@ -1,15 +1,19 @@
-"""Decoder stacks of the attention-only families (PyTorch port of
-``repro.models.transformer``): dense and MoE, with full or sliding-window
-attention.
+"""Decoder stacks (PyTorch port of ``repro.models.transformer``): dense
+and MoE, with full or sliding-window attention; Mamba-2 (``ssm``); and
+Griffin's RG-LRU blocks with local attention (``hybrid``).
 
 The reference's stack layout (``stack_pattern``: the dense prefix, the
 scanned groups, the tail) is kept as a flat list of per-layer parameter
 dicts, each layer of the kind ``layer_kinds`` gives it, and caches hold
 one entry per layer:
 
-  * the contiguous ring cache of batch mode and the bulk lane
-    (``init_cache``): ``{"layers": [{"k", "v"}], "pos": scalar,
-    "slot_pos": (W,)}``, of capacity ``W = min(window, max_len)``;
+  * the contiguous cache of batch mode and the bulk lane
+    (``init_cache``): ``{"layers": [...], "pos": scalar, "slot_pos":
+    (W,)}``.  An attention layer holds a ``{"k", "v"}`` ring of
+    ``min(window, max_len)`` rows (``local_window`` for ``attn_local``),
+    an ``ssm`` layer ``{"conv", "ssd"}`` and a ``rec`` layer ``{"conv",
+    "h"}`` (the conv tail in the cache dtype, the recurrent state in
+    float32); W is the attention rings' width, 1 for an ``ssm`` stack;
   * the per-slot ring cache of the contiguous continuous engine
     (``init_slot_cache``): the same layers with ``pos`` (C,) and
     ``slot_pos`` (C, W), one independent sequence a row;
@@ -27,8 +31,12 @@ reference's ``use_pallas=False`` branch (gather the logical view, then
 ``layers.decode_attention`` / ``chunked_attention``), which the engine runs
 on the CPU.
 
-The recurrent, multimodal and encoder-decoder families are not ported yet
-(``check_ported``).
+A prefill replaces a recurrent layer's state leaves with the ones it
+computed (in the compute dtype, as the reference returns them); every
+other write, decode included, goes into the cache's own tensors, which
+is what the engine's CUDA graphs bind.  The recurrent families have no
+paged cache (``paged_supported``), and the multimodal and
+encoder-decoder families are not ported yet (``check_ported``).
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from ..kernels import chunked_prefill_attention as cpa_kernel
 from ..kernels import paged_decode_attention as pfd_kernel
 from ..kernels import ragged_chunked_prefill as rcp_kernel
 from ..kvcache import paged as paged_lib
-from . import layers, moe as moe_lib
+from . import layers, moe as moe_lib, rglru, ssm
 from .layers import rms_norm
 
 EMPTY_POS = 2**30
@@ -54,7 +62,7 @@ EMPTY_POS = 2**30
 
 
 # the families still to port, and their ROADMAP items
-_UNPORTED = {"ssm": "9c", "hybrid": "9d", "vlm": "9e", "encdec": "9f"}
+_UNPORTED = {"vlm": "9e", "encdec": "9f"}
 
 
 def check_ported(cfg) -> None:
@@ -70,11 +78,19 @@ def check_ported(cfg) -> None:
 def stack_pattern(cfg):
     """(pattern, n_repeats, prefix_kinds, tail_kinds) of the reference
     (transformer.py:513) for the ported families: MoE stacks lead with
-    ``num_dense_layers`` dense layers."""
+    ``num_dense_layers`` dense layers; a hybrid repeats its
+    ``block_pattern`` and ends in the pattern's first
+    ``num_layers % len(pattern)`` kinds."""
     check_ported(cfg)
     if cfg.family == "moe":
         return (("moe",), cfg.num_layers - cfg.num_dense_layers,
                 ("dense",) * cfg.num_dense_layers, ())
+    if cfg.family == "ssm":
+        return ("ssm",), cfg.num_layers, (), ()
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("rec", "rec", "attn_local")
+        n = cfg.num_layers // len(pat)
+        return pat, n, (), pat[:cfg.num_layers - n * len(pat)]
     return ("dense",), cfg.num_layers, (), ()
 
 
@@ -105,10 +121,30 @@ def init_attn_mlp_block(generator, cfg, dtype, device, *,
     return p
 
 
+def init_ssm_block(generator, cfg, dtype, device) -> dict:
+    return {"ln": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+            "mixer": ssm.init_mamba2(generator, cfg, dtype, device)}
+
+
+def init_rec_block(generator, cfg, dtype, device) -> dict:
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype,  # noqa: E731
+                                device=device)
+    return {"ln1": zeros(),
+            "rec": rglru.init_rglru_block(generator, cfg, dtype, device),
+            "ln2": zeros(),
+            "mlp": layers.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                   cfg.mlp_act, dtype, device)}
+
+
 def init_stack(generator, cfg, dtype, device) -> list:
-    return [init_attn_mlp_block(generator, cfg, dtype, device,
-                                use_moe=kind == "moe")
-            for kind in layer_kinds(cfg)]
+    def one(kind):
+        if kind == "ssm":
+            return init_ssm_block(generator, cfg, dtype, device)
+        if kind == "rec":
+            return init_rec_block(generator, cfg, dtype, device)
+        return init_attn_mlp_block(generator, cfg, dtype, device,
+                                   use_moe=kind == "moe")
+    return [one(kind) for kind in layer_kinds(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -116,17 +152,42 @@ def init_stack(generator, cfg, dtype, device) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _layer_window(kind: str, cfg) -> Optional[int]:
+    """An attention layer's window: ``local_window`` for ``attn_local``."""
+    return cfg.local_window if kind == "attn_local" else cfg.window
+
+
+def _layer_cache(kind, cfg, batch, max_len, dtype, device) -> dict:
+    """One layer's zero cache (the reference's ``_layer_cache_zeros``)."""
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+    if kind == "ssm":
+        conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        return {"conv": z(batch, cfg.ssm_conv_width - 1, conv_dim),
+                "ssd": z(batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                         cfg.ssm_state, dt=torch.float32)}
+    if kind == "rec":
+        lw = cfg.lru_width or cfg.d_model
+        return {"conv": z(batch, cfg.ssm_conv_width - 1, lw),
+                "h": z(batch, lw, dt=torch.float32)}
+    cap = kv_cache_capacity(max_len, _layer_window(kind, cfg))
+    return {"k": z(batch, cap, cfg.num_kv_heads, cfg.head_dim),
+            "v": z(batch, cap, cfg.num_kv_heads, cfg.head_dim)}
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> dict:
-    """A ring of ``kv_cache_capacity(max_len, cfg.window)`` rows a layer.
-    ``device=None`` means the card (raises when none is present)."""
-    check_ported(cfg)
+    """One zero cache a layer (``_layer_cache``); ``slot_pos`` as wide as
+    the attention rings (``cfg.window``, a hybrid's ``local_window``),
+    1 for an ``ssm`` stack.  ``device=None`` means the card (raises when
+    none is present)."""
     device = resolve_device(device)
-    cap = kv_cache_capacity(max_len, cfg.window)
-    shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
-    return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
-                       for _ in range(cfg.num_layers)],
+    cache = [_layer_cache(kind, cfg, batch, max_len, dtype, device)
+             for kind in layer_kinds(cfg)]
+    window = cfg.window or (cfg.local_window if cfg.family == "hybrid"
+                            else None)
+    cap = 1 if cfg.family == "ssm" else kv_cache_capacity(max_len, window)
+    return {"layers": cache,
             "pos": torch.zeros((), dtype=torch.int32, device=device),
             "slot_pos": torch.full((cap,), EMPTY_POS, dtype=torch.int32,
                                    device=device)}
@@ -191,16 +252,17 @@ def init_slot_cache(cfg, num_slots: int, max_len: int,
 
 
 def write_slot(cache: dict, one: dict, slot) -> None:
-    """Write a freshly prefilled single-sequence ring cache (batch 1,
-    scalar ``pos``, (W,) ``slot_pos``: what ``model.prefill`` returns for
-    a (1, S) prompt) into row ``slot`` of a per-slot cache, in place.
-    Every K/V row and the ``slot_pos`` row of the slot are replaced, so
-    nothing of an evicted sequence survives.  ``slot``: an int or a
-    1-element int tensor on the cache's device (``paged.as_index``)."""
+    """Write a freshly prefilled single-sequence cache (batch 1, scalar
+    ``pos``, (W,) ``slot_pos``: what ``model.prefill`` returns for a
+    (1, S) prompt) into row ``slot`` of a per-slot cache, in place, each
+    leaf cast to the per-slot cache's dtype.  Every K/V row, recurrent
+    state and the ``slot_pos`` row of the slot are replaced, so nothing
+    of an evicted sequence survives.  ``slot``: an int or a 1-element int
+    tensor on the cache's device (``paged.as_index``)."""
     idx = paged_lib.as_index(slot, cache["pos"].device)
     for lc, lo in zip(cache["layers"], one["layers"]):
-        lc["k"].index_copy_(0, idx, lo["k"].to(lc["k"].dtype))
-        lc["v"].index_copy_(0, idx, lo["v"].to(lc["v"].dtype))
+        for key, t in lc.items():
+            t.index_copy_(0, idx, lo[key].to(t.dtype))
     cache["pos"].index_copy_(0, idx,
                              one["pos"].reshape(1).to(cache["pos"].dtype))
     cache["slot_pos"].index_copy_(
@@ -284,22 +346,30 @@ def _attn_seq(p, x, positions, cfg, window):
     return x + layers.attention_out(p["attn"], attn), k, v
 
 
-def _attn_decode(p, x, cache_k, cache_v, pos, slot_pos, cfg, window):
-    """One-token self attention against the ring cache: scalar ``pos``
-    with (W,) ``slot_pos`` (batch mode), or (B,) ``pos`` with (B, W)
-    ``slot_pos`` (per-slot, every row its own sequence); writes K/V and
-    ``slot_pos`` in place.  Keys more than ``window`` back are masked
-    (a wrapped ring has overwritten most of them already)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = layers.attention_qkv(p["attn"], h, pos[..., None],
-                                   cfg.rope_theta)
-    decode_write_kv(cache_k, cache_v, k, v, pos)
-    Wc = cache_k.shape[1]
+def decode_slot_pos(slot_pos, pos) -> None:
+    """Record the decoded token's position ``pos`` at ring slot ``pos %
+    W`` of ``slot_pos`` (W,) or, per row, (B, W), in place (the
+    reference's ``decode_step`` bookkeeping)."""
+    Wc = slot_pos.shape[-1]
     if pos.ndim:
         rows = torch.arange(slot_pos.shape[0], device=pos.device)
         slot_pos[rows, pos.long() % Wc] = pos
     else:
         slot_pos[pos.long() % Wc] = pos
+
+
+def _attn_decode(p, x, cache_k, cache_v, pos, slot_pos, cfg, window):
+    """One-token self attention against the ring cache: scalar ``pos``
+    with (W,) ``slot_pos`` (batch mode), or (B,) ``pos`` with (B, W)
+    ``slot_pos`` (per-slot, every row its own sequence), ``slot_pos``
+    already holding ``pos`` (``decode_slot_pos``); writes K/V in place.
+    Keys more than ``window`` back are masked (a wrapped ring has
+    overwritten most of them already)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = layers.attention_qkv(p["attn"], h, pos[..., None],
+                                   cfg.rope_theta)
+    decode_write_kv(cache_k, cache_v, k, v, pos)
+    Wc = cache_k.shape[1]
     valid = torch.clamp(pos + 1, max=Wc)
     attn = layers.decode_attention(q, cache_k, cache_v, q_position=pos,
                                    kv_positions=slot_pos, valid_len=valid,
@@ -419,6 +489,37 @@ def _attn_chunks_paged(p, x, pages_k, pages_v, ctx, cfg):
     return x + layers.attention_out(p["attn"], attn)
 
 
+def _refuse_paged(kind: str, mode: str) -> None:
+    """The paged modes take only dense and MoE layers (the reference's
+    ``apply_block_chunk`` / ``apply_block_chunks``)."""
+    what = "paged decode" if mode == "decode_paged" else "chunked prefill"
+    if mode not in ("decode_paged", "chunk", "chunks"):
+        raise ValueError(f"unknown mode {mode!r}")
+    raise NotImplementedError(
+        f"{what} requires a paged-eligible stack (got {kind!r})")
+
+
+def _recurrent_layer(kind, p, x, cfg, lc, mode):
+    """An ``ssm`` layer, ``x + mixer(rms_norm(x))`` with no MLP, or a
+    ``rec`` layer, ``mlp_part(x + rec(rms_norm(x)))``.  A prefill starts
+    from the layer cache's state, as the reference does, and replaces its
+    leaves; a decode step updates them in place."""
+    if mode not in ("prefill", "decode"):
+        _refuse_paged(kind, mode)
+    h = rms_norm(x, p["ln" if kind == "ssm" else "ln1"], cfg.norm_eps)
+    if mode == "prefill":
+        apply = (ssm.apply_mamba2 if kind == "ssm"
+                 else rglru.apply_recurrent_block)
+        y, state = apply(p["mixer" if kind == "ssm" else "rec"], h, cfg, lc)
+        if lc is not None:
+            lc.update(state)
+    elif kind == "ssm":
+        y = ssm.decode_mamba2(p["mixer"], h, cfg, lc)
+    else:
+        y = rglru.decode_recurrent_block(p["rec"], h, cfg, lc)
+    return x + y if kind == "ssm" else _mlp_part(p, x + y, cfg)
+
+
 def _mlp_part(p, x, cfg):
     return x + layers.apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
                                 cfg.mlp_act)
@@ -437,22 +538,30 @@ def _moe_part(p, x, cfg):
 
 def apply_stack(stack: list, x: torch.Tensor, ctx: dict, cfg,
                 cache: Optional[dict], mode: str):
-    """Run every layer; ``mode`` is ``prefill`` (fills a ring cache),
-    ``decode`` (a ring cache, batch or per-slot), ``decode_paged``,
-    ``chunk`` or ``chunks`` (the paged cache).  Caches are updated in
-    place.  Returns (hidden states, aux): the MoE layers' ``moe_aux_loss``
-    and ``moe_drop_frac`` summed over the layers, as the reference's
-    ``apply_stack``; 0.0 for a stack without MoE layers."""
+    """Run every layer; ``mode`` is ``prefill`` (fills a contiguous
+    cache), ``decode`` (a contiguous cache, batch or per-slot; its
+    ``slot_pos`` already holds the step's position, ``decode_slot_pos``),
+    ``decode_paged``, ``chunk`` or ``chunks`` (the paged cache, dense and
+    MoE layers only).  Caches are updated in place.  Returns (hidden
+    states, aux): the MoE layers' ``moe_aux_loss`` and ``moe_drop_frac``
+    summed over the layers, as the reference's ``apply_stack``; 0.0 for a
+    stack without MoE layers."""
     aux = {"moe_aux_loss": 0.0, "moe_drop_frac": 0.0}
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), stack)):
         lc = cache["layers"][i] if cache is not None else None
+        if kind in ("ssm", "rec"):
+            x = _recurrent_layer(kind, p, x, cfg, lc, mode)
+            continue
+        window = _layer_window(kind, cfg)
         if mode == "prefill":
-            x, k, v = _attn_seq(p, x, ctx["positions"], cfg, cfg.window)
+            x, k, v = _attn_seq(p, x, ctx["positions"], cfg, window)
             if lc is not None:
                 prefill_write_kv(lc["k"], lc["v"], k, v)
         elif mode == "decode":
             x = _attn_decode(p, x, lc["k"], lc["v"], ctx["pos"],
-                             ctx["slot_pos"], cfg, cfg.window)
+                             ctx["slot_pos"], cfg, window)
+        elif kind == "attn_local":
+            _refuse_paged(kind, mode)
         elif mode == "decode_paged":
             x = _attn_decode_paged(p, x, lc["k"], lc["v"], ctx["pos"],
                                    ctx["tables"], cfg, ctx["use_kernels"])

@@ -1,8 +1,9 @@
 """Real-time serving engine: RT-LM scheduling over the PyTorch model.
 
-Port of ``repro.serving.engine`` on the attention-only stacks: dense and
-MoE, full attention on every row, sliding-window attention on the
-contiguous rows (the paged cache refuses a window, as the reference's
+Port of ``repro.serving.engine`` on the dense and MoE stacks, full
+attention on every row, and on the sliding-window and recurrent (Mamba-2,
+RG-LRU with local attention) stacks on the contiguous rows (the paged
+cache refuses a window and recurrent state, as the reference's
 ``transformer.paged_supported`` does).  A
 request goes through RULEGEN features and the m_theta uncertainty ``u``,
 then UASCHED priority and admission (a request the policy offloads goes
@@ -66,7 +67,7 @@ across the failover rounds of ``serving.replica.ReplicatedEngine``.  With
 no plan the result carries no fault key.
 
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-item: the ssm, hybrid, vlm and encdec families (items 9c-9f).
+item: the vlm and encdec families (items 9e-9f).
 """
 
 from __future__ import annotations
@@ -229,7 +230,7 @@ class ServingEngine:
             raise ValueError('faults (serving.faults.ReplicaFaults) '
                              'require mode="continuous", '
                              'prefill="stall"')
-        # what the port does not serve yet: the recurrent, multimodal and
+        # what the port does not serve yet: the multimodal and
         # encoder-decoder families
         transformer.check_ported(cfg)
         emb = params["embed"]["embedding"]

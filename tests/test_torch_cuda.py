@@ -526,11 +526,11 @@ def test_cuda_model_prefill_chunk_goes_through_the_kernel(cuda):
 GC, GBS, GNB, GW, GS = 3, 4, 6, 24, 8      # slots, block, table, ring, prompt
 
 
-def _smoke_model(cuda, head_dim=None):
+def _smoke_model(cuda, head_dim=None, name="starcoder2-3b"):
     import dataclasses
     from repro_torch import configs
     from repro_torch.models import model as model_lib
-    cfg = configs.get_smoke_config("starcoder2-3b")
+    cfg = configs.get_smoke_config(name)
     if head_dim is not None:
         cfg = dataclasses.replace(cfg, head_dim=head_dim)
     return cfg, model_lib.init_params(
@@ -558,7 +558,8 @@ def _bits(tree):
 def _graph_case(name, cfg, cuda):
     """(fn, cache, inputs(step) -> host arrays, static kwargs) of one of
     the engine's executables at a small size, the cache filled with
-    random K/V and live positions so that every step reads real state."""
+    random K/V (and recurrent states) and live positions so that every
+    step reads real state."""
     from repro_torch.models import model as model_lib
     from repro_torch.models import transformer
     from repro_torch.prefill import build_packed_arrays
@@ -569,6 +570,7 @@ def _graph_case(name, cfg, cuda):
         cache = transformer.init_slot_cache(cfg, GC, GW, device=cuda)
         cache["pos"].copy_(torch.tensor([5, 9, 2], dtype=torch.int32))
         for s, p in enumerate((5, 9, 2)):
+            p = min(p, cache["slot_pos"].shape[1])    # an ssm stack's is 1
             cache["slot_pos"][s, :p] = torch.arange(p, dtype=torch.int32)
     else:
         cache = transformer.init_paged_cache(cfg, GC, N, GBS, device=cuda)
@@ -695,6 +697,35 @@ def test_cuda_graphed_executable_equals_eager(cuda, name, head_dim):
     if name in ("window paged", "ragged"):
         assert sum(launches.values()) == (cfg.num_layers
                                           * kw.get("num_steps", 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["window ring", "admit ring"])
+@pytest.mark.parametrize("model", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_cuda_recurrent_graphed_executable_equals_eager(cuda, model, name):
+    """The recurrent families' decode window and stall admission (bf16
+    smoke models: the SSD scan, the RG-LRU doubling scan, conv tails and
+    states written in place, recurrentgemma's local-attention ring),
+    captured, then replayed three times with other inputs, against eager
+    calls on a copy of the cache: outputs and every cache tensor equal
+    bit for bit after every call."""
+    from repro_torch.serving.generate import GraphExecutable
+    cfg, params = _smoke_model(cuda, name=model)
+    fn, cache, inputs, kw = _graph_case(name, cfg, cuda)
+    eager = _clone(cache)
+    ex = GraphExecutable(fn, name, cuda)
+    ex.warm("k", (params, cfg, cache) + inputs(0), kw)
+    assert list(ex.aot) == ["k"]
+    for step in range(3):
+        args = inputs(step)
+        out = ex.call_aot("k", params, cfg, cache, *args, **kw)
+        want = fn(params, cfg, eager,
+                  *(torch.from_numpy(a).to(cuda) for a in args), **kw)
+        torch.cuda.synchronize()
+        assert ex.replays == step + 1
+        assert torch.equal(out, want)
+        for a, b in zip(_bits(cache), _bits(eager)):
+            assert torch.equal(a, b)
 
 
 def _engine_setup(cuda):

@@ -2,11 +2,11 @@
 
   * capture safety — every function the continuous engine captures (both
     decode windows, both stall admissions, the copy-on-write page copy,
-    the fused ragged prefill), on the dense, MoE and sliding-window smoke
-    models, and the MoE layer alone, runs at the smoke size on the ``meta``
-    device, which stands in for the card, under a ``TorchFunctionMode``
-    and a ``TorchDispatchMode`` that fail on any operation a capture
-    forbids: a read of a device value on the host
+    the fused ragged prefill), on the dense, MoE, sliding-window and
+    recurrent smoke models, and the MoE layer alone, runs at the smoke
+    size on the ``meta`` device, which stands in for the card, under a
+    ``TorchFunctionMode`` and a ``TorchDispatchMode`` that fail on any
+    operation a capture forbids: a read of a device value on the host
     (``aten._local_scalar_dense`` and the like), a data-dependent shape
     (``nonzero``, boolean-mask indexing) or a copy between host and
     device.  The attention kernels are stubbed: on the card the CUDA
@@ -214,14 +214,20 @@ def test_graphed_functions_are_capture_safe(meta_model, stub_kernels,
 
 @pytest.fixture(scope="module")
 def family_models():
-    """The MoE and sliding-window smoke models on the ``meta`` device;
-    the windows cut to 4 so the S = 8 admission prefill runs the
-    windowed attention and wraps the ring."""
+    """The MoE, sliding-window and recurrent smoke models on the ``meta``
+    device; the windows cut to 4 so the S = 8 admission prefill runs the
+    windowed attention and wraps the ring, and mamba2's SSD chunk to 3,
+    so the admission's scan runs three chunks, the last padded."""
     out = {}
-    for name in ("kimi-k2-1t-a32b", "mixtral-8x22b", "h2o-danube-3-4b"):
+    for name in ("kimi-k2-1t-a32b", "mixtral-8x22b", "h2o-danube-3-4b",
+                 "mamba2-1.3b", "recurrentgemma-9b"):
         cfg = configs.get_smoke_config(name)
         if cfg.window:
             cfg = dataclasses.replace(cfg, window=4)
+        if cfg.family == "hybrid":
+            cfg = dataclasses.replace(cfg, local_window=4)
+        if cfg.family == "ssm":
+            cfg = dataclasses.replace(cfg, ssm_chunk=3)
         params = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         out[name] = (cfg, _to_meta(params))
     return out
@@ -239,6 +245,18 @@ def test_moe_and_window_steps_are_capture_safe(family_models, stub_kernels,
     plan, the spare-row dispatch, the fixed-order combine) and the
     windowed prefill and ring decode read nothing back on the host, so
     the engine's graphs capture them."""
+    fn, args, kwargs = _graphed_calls(*family_models[name])[call]
+    capture_safe(fn, *args, **kwargs)
+
+
+@pytest.mark.parametrize("call", ["window ring", "admit ring"])
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_recurrent_steps_are_capture_safe(family_models, name, call):
+    """The SSD scan (its chunk loop and padding), the RG-LRU doubling
+    scan, the conv tails, the in-place state updates and the local
+    attention's ring read nothing back on the host, so the engine's
+    graphs capture the recurrent families' decode windows and stall
+    admissions."""
     fn, args, kwargs = _graphed_calls(*family_models[name])[call]
     capture_safe(fn, *args, **kwargs)
 

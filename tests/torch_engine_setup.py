@@ -1,7 +1,7 @@
 """Shared setup of the PyTorch port's engine parity tests
 (``tests/test_torch_engine_modes.py``, ``tests/test_torch_prefix.py``,
-``tests/test_torch_moe_engine.py``, ``tests/test_torch_window_engine.py``
-and others).
+``tests/test_torch_moe_engine.py``, ``tests/test_torch_window_engine.py``,
+``tests/test_torch_recurrent_engine.py`` and others).
 
 One float32 smoke model (starcoder2-3b unless another is named) in both
 frameworks (the port's weights are the
@@ -171,20 +171,30 @@ def assert_sim_parity(res, sim):
 
 
 def assert_kv(tlayers, jstate, cfg):
-    """bf16 caches (ring rows or page pools) that each framework filled
-    from float32 K/V: within two bf16 ulps, fewer than 10 % of entries
-    apart (ROADMAP Queue 3 entry 1: XLA and PyTorch sum the float32
-    projections in other orders, so a value at a rounding boundary can
-    round the other way)."""
+    """Layer caches (ring rows, page pools, recurrent states) that each
+    framework filled from float32 compute, leaf by leaf:
+
+      * bf16 leaves (K/V, a conv tail in a bf16 cache): within two bf16
+        ulps, fewer than 10 % of entries apart (ROADMAP Queue 3 entry 1:
+        XLA and PyTorch sum the float32 projections in other orders, so a
+        value at a rounding boundary can round the other way);
+      * float32 leaves (the ``ssd`` and ``h`` states, every leaf of a
+        float32 cache): within rtol = atol = 1e-4, the port's float32
+        tolerance for the recurrent layers (summation order and scan
+        order)."""
     jlayers = convert.stack_layers(jstate, cfg)
     assert len(tlayers) == len(jlayers) == cfg.num_layers
-    for tl, jl in zip(tlayers, jlayers):
-        for kv in ("k", "v"):
-            a = tl[kv]
-            b = np.asarray(jl[kv])
+    for i, (tl, jl) in enumerate(zip(tlayers, jlayers)):
+        for key, a in tl.items():
+            b = np.asarray(jl[key])
+            if a.dtype == torch.float32:
+                assert b.dtype == np.float32, (i, key, b.dtype)
+                np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
+                                           atol=1e-4, err_msg=f"{i} {key}")
+                continue
+            assert a.dtype == torch.bfloat16, (i, key, a.dtype)
             diff = a.view(torch.int16).numpy() != b.view(np.int16)
-            assert diff.mean() < 0.1, (i, kv, int(diff.sum()))
+            assert diff.mean() < 0.1, (i, key, int(diff.sum()))
             np.testing.assert_allclose(a.float().numpy(),
                                        b.astype(np.float32),
                                        rtol=2.0 ** -6, atol=1e-3)
-
