@@ -146,10 +146,36 @@ Phases, in order; any failure exits non-zero:
      its windowed prefill and the rings wrap.  Every serve eager and
      graphed, held as 8b; ``kv="paged"`` must raise the reference's
      family refusal.  One ``engine family`` line a serve, plus the
-     ``ssd layer`` and ``decode check`` lines.  Then the whole run's
+     ``ssd layer`` and ``decode check`` lines;
+ 10. the multimodal and encoder-decoder families, each published config
+     whole at model level (their engine refuses them, as the reference's
+     cannot serve them), alone on the card.  10a: llava-next-mistral-7b
+     (32 layers, 2880 patch tokens); 10b: seamless-m4t-large-v2 (24
+     encoder and 24 cross decoder layers, 4096 frames).  Each: 4 corpus
+     prompts of 64 tokens behind seeded stub patches or frames; step 0's
+     logits (the prefill's) against a float32 copy of the weights, within
+     LOGIT_ATOL and the same top-1; ``generate.generate`` of 32 tokens
+     (every row its 32, inside the vocabulary); the decode check of
+     phase 9; four eager decode steps under ``torch.profiler`` (device
+     busy, idle share, kernels, the costliest).  One ``multimodal`` line
+     a model;
+ 11. training and the launchers.  11a: ``launch.train.main`` trains
+     starcoder2-3b whole (``--no-smoke``: every layer rematerialised),
+     AdamW lr 3e-4, B 4, S 1024, 20 steps, writing a checkpoint under
+     ``build/``; the launcher's own first step (bf16) holds its loss
+     within FIRST_LOSS_ATOL and its global gradient norm within
+     FIRST_NORM_RTOL of a float32 copy of its weights on its first batch,
+     which a planted fault (the copy with one layer skipped) must miss;
+     after it, the restored checkpoint's leaves and eval loss equal the
+     trained ones bit for bit.
+     11b: mamba2-1.3b whole with Adafactor, B 4, S 1024, 10 steps.  Both:
+     every loss and gradient norm finite, the mean of the last five
+     losses below the first; seconds a step and peak ``memory_allocated``
+     printed.  11c: ``launch.serve.main`` on the card at its smoke size
+     with 16 requests, every request accounted for.  Then the whole run's
      seconds.
 
-Every number of phases 4 to 9, tokens and traces included, also goes to
+Every number of phases 4 to 11, tokens and traces included, also goes to
 ``build/chip_smoke.json``.  Then one JSON line of kernel results
 (each kernel's launches from the path that runs it: decode and ragged
 prefill from phase 4's eager serve, beside them ``launches_d112`` and
@@ -982,7 +1008,8 @@ PROFILE_TAGS = ("paged_decode_split_kernel", "paged_decode_combine_kernel",
                 "ragged_prefill_kernel")
 
 
-def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
+def profile_window(torch, fn, warm: bool = True, cpu: bool = True,
+                   top: int = 0) -> dict:
     """One call of ``fn`` under ``torch.profiler``: wall time, the summed
     device time of its kernels (busy), the idle share, and the engine
     path's port kernels' device time and share of the busy time (the
@@ -992,7 +1019,9 @@ def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
     too).  "not measured" if
     the profiler reports no device time.  ``warm`` calls ``fn`` once
     before; ``cpu=False`` records device activity only (a whole serve
-    launches millions of operations)."""
+    launches millions of operations).  ``top`` > 0 adds the number of
+    device kernels and the ``top`` kernels by summed device time (name cut
+    to 96 characters, seconds, count)."""
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()                                 # allocator, libraries
@@ -1013,11 +1042,16 @@ def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
     # per event, minutes for the millions of launches of a whole serve
     cuda = torch.autograd.DeviceType.CUDA
     busy, ours, events = 0.0, {}, dict.fromkeys(PROFILE_TAGS, 0)
+    by_name = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cuda:
             continue
         t = e.duration_ns() * 1e-9
         busy += t
+        if top:
+            row = by_name.setdefault(e.name()[:96], [0.0, 0])
+            row[0] += t
+            row[1] += 1
         for tag in PROFILE_TAGS:
             if tag in e.name():
                 ours[tag] = ours.get(tag, 0.0) + t
@@ -1026,10 +1060,16 @@ def profile_window(torch, fn, warm: bool = True, cpu: bool = True) -> dict:
                                if tag.startswith("paged_decode"))
     if busy <= 0.0:
         return {"wall_s": wall, "device_busy_s": "not measured"}
-    return {"wall_s": wall, "device_busy_s": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "kernel_device_s": ours, "kernel_events": events,
-            "kernel_share_of_busy": {k: v / busy for k, v in ours.items()}}
+    out = {"wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / wall),
+           "kernel_device_s": ours, "kernel_events": events,
+           "kernel_share_of_busy": {k: v / busy for k, v in ours.items()}}
+    if top:
+        out["device_kernels"] = sum(n for _, n in by_name.values())
+        out["top_kernels"] = sorted(([k, t, n] for k, (t, n)
+                                     in by_name.items()),
+                                    key=lambda r: -r[1])[:top]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1960,7 +2000,14 @@ def family_model(torch, name: str, layers=None):
     kinds = (", ".join(kinds) if len(kinds) <= 4 else
              f"{kinds[0]} ... {kinds[-1]}: " + ", ".join(
                  f"{kinds.count(k)} {k}" for k in sorted(set(kinds))))
-    if cfg.family == "ssm":
+    if cfg.family in ("vlm", "encdec"):
+        shape = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                 f"{cfg.head_dim}, vocab {cfg.vocab_size}, " + (
+                     f"{cfg.num_patch_tokens} patch tokens"
+                     if cfg.frontend == "vision" else
+                     f"{cfg.num_encoder_layers} encoder layers over "
+                     f"{cfg.encoder_seq_len} frames"))
+    elif cfg.family == "ssm":
         shape = (f"SSD {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
                  f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, conv "
                  f"{cfg.ssm_conv_width}")
@@ -2284,16 +2331,20 @@ def check_ssd_layer(torch, cfg, params) -> dict:
 
 
 def check_decode_continues_prefill(torch, cfg, params, S: int) -> dict:
-    """9a / 9b (ii): two prompts of S tokens prefilled, then one decode
-    step of token S + 1, against one prefill of all S + 1 tokens: last
-    logits within LOGIT_ATOL, the same top-1 (phase 3's limit)."""
+    """9a / 9b (ii), 10a / 10b: two prompts of S tokens prefilled (behind
+    the stub frontend's patches or frames for a vlm or encdec config),
+    then one decode step of token S + 1, against one prefill of all S + 1
+    tokens: last logits within LOGIT_ATOL, the same top-1 (phase 3's
+    limit)."""
     from repro_torch.models import model as model_lib
     rng = np.random.default_rng(SEED + 10)
     toks = torch.from_numpy(rng.integers(
         2, cfg.vocab_size, (2, S + 1)).astype(np.int32)).to("cuda")
-    max_len = S + 1 + 8
-    _, want = model_lib.prefill(params, cfg, toks, max_len)
-    cache, _ = model_lib.prefill(params, cfg, toks[:, :S], max_len)
+    kw = frontend_inputs(torch, cfg, 2)
+    max_len = S + 1 + 8 + (cfg.num_patch_tokens
+                           if cfg.frontend == "vision" else 0)
+    _, want = model_lib.prefill(params, cfg, toks, max_len, **kw)
+    cache, _ = model_lib.prefill(params, cfg, toks[:, :S], max_len, **kw)
     _, got = model_lib.decode_step(params, cfg, cache, toks[:, S:])
     # the padded vocabulary's columns are masked to -1e30 in both
     want, got = want[:, :cfg.vocab_size], got[:, :cfg.vocab_size]
@@ -2340,6 +2391,363 @@ def run_recurrent(torch, kmods, inputs, card: str) -> dict:
         out[name] = res
         del params
         free_card(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the multimodal and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+#: 10a / 10b: MM_ROWS corpus prompts of MM_PROMPT tokens behind the stub
+#: frontend (llava's 2880 patches, seamless's 4096 frames), MM_NEW tokens
+#: generated
+MM_ROWS = 4
+MM_PROMPT = 64
+MM_NEW = 32
+
+
+def frontend_inputs(torch, cfg, rows: int) -> dict:
+    """Seeded stub patches (vision frontend) or frames (encdec) for
+    ``rows`` prompts, bf16 on the card; {} for the other families."""
+    from repro_torch.models import multimodal
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    if cfg.frontend == "vision":
+        return {"patches": multimodal.stub_patch_embeddings(gen, rows, cfg)}
+    if cfg.family == "encdec":
+        return {"frames": multimodal.stub_frame_embeddings(gen, rows, cfg)}
+    return {}
+
+
+def check_float32_copy(torch, cfg, params, tokens, kw: dict) -> dict:
+    """Step 0's logits (the prefill's, at the last prompt token) of the
+    bf16 model against a float32 copy of the same weights on the card,
+    the same stub inputs: within LOGIT_ATOL, the same top-1.  Also the
+    bf16 prefill's wall time (the second call: the first warms up)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.tree import tree_map
+    V = cfg.vocab_size
+    max_len = tokens.shape[1] + 8 + (cfg.num_patch_tokens
+                                     if cfg.frontend == "vision" else 0)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, got = model_lib.prefill(params, cfg, tokens, max_len, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del cache
+    p32 = tree_map(lambda p: p.float(), params)
+    _, want = model_lib.prefill(p32, cfg, tokens, max_len,
+                                cache_dtype=torch.float32, **kw)
+    del p32
+    got, want = got[:, :V], want[:, :V]
+    torch.cuda.synchronize()
+    out = {"prefill_wall_s": walls,
+           "logits_max_abs_err": float((got - want).abs().max()),
+           "logits_scale": float(want.abs().max()),
+           "top1": [got.argmax(-1).tolist(), want.argmax(-1).tolist()]}
+    free_card(torch)
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail(f"{cfg.name}: non-finite step-0 logits")
+    if out["logits_max_abs_err"] > LOGIT_ATOL:
+        fail(f"{cfg.name}: bf16 step 0 vs its float32 copy: {out}")
+    if out["top1"][0] != out["top1"][1]:
+        fail(f"{cfg.name}: bf16 step 0 changed the float32 copy's top-1: "
+             f"{out}")
+    return out
+
+
+#: 10a / 10b: eager decode steps under the profiler, and the kernels
+#: listed by device time
+PROFILE_DECODE_STEPS = 4
+PROFILE_TOP = 6
+
+
+def profile_decode(torch, cfg, params, tokens, kw: dict) -> dict:
+    """10a / 10b: PROFILE_DECODE_STEPS eager decode steps after a prefill
+    of ``tokens`` behind the stub frontend, each step's token read back
+    as ``generate`` reads its stop test, under ``profile_window``: wall,
+    device busy and idle share of the window, the device kernels it ran
+    and the costliest."""
+    from repro_torch.models import model as model_lib
+    max_len = tokens.shape[1] + 2 * PROFILE_DECODE_STEPS + 8 + (
+        cfg.num_patch_tokens if cfg.frontend == "vision" else 0)
+    cache, logits = model_lib.prefill(params, cfg, tokens, max_len, **kw)
+    token = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+
+    def steps():
+        for _ in range(PROFILE_DECODE_STEPS):
+            token[0], _ = model_lib.decode_step(params, cfg, cache, token[0])
+            bool((token[0] < 0).any())
+
+    prof = profile_window(torch, steps, top=PROFILE_TOP)
+    del cache, logits, token
+    free_card(torch)
+    keep = ("wall_s", "device_busy_s", "device_idle_share",
+            "device_kernels", "top_kernels")
+    return {"steps": PROFILE_DECODE_STEPS,
+            **{k: prof[k] for k in keep if k in prof}}
+
+
+def run_multimodal(torch, inputs, card: str) -> dict:
+    """Phase 10, one model on the card at a time: 10a llava-next-mistral-7b
+    whole, 10b seamless-m4t-large-v2 whole, each generating MM_NEW tokens
+    for MM_ROWS prompts behind its stub frontend (``generate.generate``),
+    with the float32-copy and decode checks and a profiled window of
+    decode steps."""
+    from repro_torch.serving import generate
+    from repro_torch.serving.engine import tokenize_padded
+    out = {}
+    for name in ("llava-next-mistral-7b", "seamless-m4t-large-v2"):
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, info = family_model(torch, name)
+        tokens = torch.from_numpy(np.stack([
+            tokenize_padded(t.text, cfg.vocab_size, MM_PROMPT)
+            for t in inputs["test"][:MM_ROWS]])).to("cuda")
+        kw = frontend_inputs(torch, cfg, MM_ROWS)
+        front = next(iter(kw.values()))
+        res = {"model": info, "rows": MM_ROWS, "prompt_tokens": MM_PROMPT,
+               "frontend": {k: list(v.shape) for k, v in kw.items()}}
+        res["float32_check"] = check_float32_copy(torch, cfg, params,
+                                                  tokens, kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, lengths = generate.generate(params, cfg, tokens,
+                                          max_new_tokens=MM_NEW, eos_id=-1,
+                                          **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        toks = toks.cpu()
+        res["generate"] = {
+            "wall_s": wall, "new_tokens": MM_NEW,
+            "positions": front.shape[1] + MM_PROMPT
+            if cfg.frontend == "vision" else MM_PROMPT,
+            "generated_tokens_per_s": MM_ROWS * MM_NEW / wall,
+            "tokens": toks.tolist(), "lengths": lengths.tolist()}
+        if toks.shape != (MM_ROWS, MM_NEW) or \
+                lengths.tolist() != [MM_NEW] * MM_ROWS:
+            fail(f"{name}: generate gave {tuple(toks.shape)} tokens, "
+                 f"lengths {lengths.tolist()}")
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"{name}: generated a token outside the vocabulary")
+        res["decode_profile"] = profile_decode(torch, cfg, params, tokens,
+                                               kw)
+        res["decode_check"] = check_decode_continues_prefill(
+            torch, cfg, params, MM_PROMPT)
+        res["memory_allocated_peak_bytes"] = torch.cuda.max_memory_allocated()
+        line = {k: res[k] for k in ("rows", "prompt_tokens", "frontend",
+                                    "float32_check", "decode_profile",
+                                    "decode_check")}
+        line["generate"] = {k: v for k, v in res["generate"].items()
+                            if k != "tokens"}
+        print(f"multimodal {name} [{card}]: {json.dumps(line)}", flush=True)
+        out[name] = res
+        del params, kw, front
+        free_card(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: training and the launchers
+# ---------------------------------------------------------------------------
+
+#: 11a / 11b: ``launch.train`` arguments at full width (``--no-smoke``:
+#: every layer rematerialised)
+TRAIN_RUNS = {
+    "starcoder2-3b": ["--optimizer", "adamw", "--lr", "3e-4", "--batch", "4",
+                      "--seq", "1024", "--steps", "20", "--log-every", "5"],
+    "mamba2-1.3b": ["--optimizer", "adafactor", "--lr", "1e-3", "--batch",
+                    "4", "--seq", "1024", "--steps", "10", "--log-every",
+                    "5"],
+}
+#: 11a's first-step check: bf16 loss against a float32 copy's (absolute)
+#: and the global gradient norm (relative).  bf16 reads 3.0e-4 and 3.0e-4
+#: on the H100; skipping one of the 30 layers (the planted fault) 9.0e-3
+#: and 3.2e-3, so these limits must, and do, catch it
+FIRST_LOSS_ATOL = 3e-3
+FIRST_NORM_RTOL = 2e-3
+SERVE_REQUESTS = 16
+
+
+def first_batch(torch, cfg, batch: int, seq: int) -> dict:
+    """The launcher's first batch (``SyntheticLMData`` seed 0, stub 0)."""
+    from repro_torch.training import data as data_lib
+    pipe = data_lib.SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    batch_size=batch, seed=SEED)
+    return data_lib.add_modality_stub(
+        next(pipe.batches(1, device="cuda")), cfg, seed=0)
+
+
+def float32_first_step(torch, cfg, batch: dict) -> dict:
+    """11a: the loss and global gradient norm of a float32 copy of the
+    launcher's weights (``init_params`` seed SEED, the launcher's
+    ``--seed``) on its first batch, rematerialised as the launcher runs
+    them; and, as a planted fault that ``check_first_step`` reads against
+    its limits, the same with the middle layer skipped."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.tree import tree_map, tree_paths
+    params = tree_map(lambda t: t.float(), model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda"))
+    skip = cfg.num_layers // 2
+    out = {}
+    for label, p in (("float32", params),
+                     ("planted_fault", dict(params, layers=[
+                         layer for i, layer in enumerate(params["layers"])
+                         if i != skip]))):
+        leaves = [t.requires_grad_(True) for _, t in tree_paths(p)]
+        loss, _ = model_lib.lm_loss(p, cfg, batch, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        out[label] = {"loss": float(loss.detach()),
+                      "grad_norm": float(global_norm(grads))}
+        del grads, loss, leaves, p
+        free_card(torch)
+    out["planted_fault"]["skipped_layer"] = skip
+    del params
+    free_card(torch)
+    return out
+
+
+def first_step_errors(got: dict, want: dict) -> dict:
+    return {"loss_abs_err": abs(got["loss"] - want["loss"]),
+            "grad_norm_rel_err": abs(got["grad_norm"] - want["grad_norm"])
+            / want["grad_norm"]}
+
+
+def check_first_step(cfg, first: dict, f32: dict) -> dict:
+    """11a: the launcher's own first step (``metrics[0]``: bf16 weights,
+    remat) against ``float32_first_step``'s copy: loss within
+    FIRST_LOSS_ATOL, global gradient norm within FIRST_NORM_RTOL; and
+    the planted fault must miss at least one of those limits."""
+    bf16 = {k: first[k] for k in ("loss", "grad_norm")}
+    out = {"bf16": bf16, **f32, **first_step_errors(bf16, f32["float32"])}
+    fault = first_step_errors(f32["planted_fault"], f32["float32"])
+    fault["over_limits"] = [fault["loss_abs_err"] > FIRST_LOSS_ATOL,
+                            fault["grad_norm_rel_err"] > FIRST_NORM_RTOL]
+    out["planted_fault"].update(fault)
+    if not all(np.isfinite([bf16["loss"], f32["float32"]["loss"],
+                            bf16["grad_norm"],
+                            f32["float32"]["grad_norm"]])):
+        fail(f"{cfg.name}: non-finite first step: {out}")
+    if out["loss_abs_err"] > FIRST_LOSS_ATOL:
+        fail(f"{cfg.name}: bf16 loss vs float32 copy: {out}")
+    if out["grad_norm_rel_err"] > FIRST_NORM_RTOL:
+        fail(f"{cfg.name}: bf16 gradient norm vs float32 copy: {out}")
+    if not any(fault["over_limits"]):
+        fail(f"{cfg.name}: the first-step check passes a skipped layer: "
+             f"{out}")
+    return out
+
+
+def run_train(torch, name: str, card: str) -> dict:
+    """11a / 11b: ``launch.train.main`` at full width with TRAIN_RUNS's
+    arguments; the losses and gradient norms must be finite and the mean
+    of the last five losses below the first.  11a also holds the
+    launcher's first step to a float32 copy of its weights
+    (``check_first_step``), and writes a checkpoint whose restored
+    parameters must give the trained parameters' eval loss bit for bit."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.launch import train as train_launch
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training import train_step as ts_lib
+    from repro_torch.tree import tree_paths
+    cfg = configs.get_config(name)
+    argv = TRAIN_RUNS[name] + ["--seed", str(SEED)]
+    B, S = int(argv[argv.index("--batch") + 1]), \
+        int(argv[argv.index("--seq") + 1])
+    out = {"args": argv}
+    ckpt = f32 = None
+    if name == "starcoder2-3b":
+        f32 = float32_first_step(torch, cfg, first_batch(torch, cfg, B, S))
+        ckpt = ROOT / "build" / "train_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        argv = argv + ["--checkpoint", str(ckpt)]
+    torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    t0 = time.perf_counter()
+    rc = train_launch.main(["--arch", name, "--no-smoke", "--device", "cuda",
+                            *argv], out=rec)
+    out["wall_s"] = time.perf_counter() - t0
+    out["memory_allocated_peak_bytes"] = torch.cuda.max_memory_allocated()
+    hist = rec["metrics"]
+    losses = [m["loss"] for m in hist]
+    norms = [m["grad_norm"] for m in hist]
+    out.update(rc=rc, losses=losses, grad_norms=norms,
+               step_s=rec["step_s"],
+               step_s_median=statistics.median(rec["step_s"][1:]),
+               first_loss=losses[0],
+               last5_mean_loss=statistics.fmean(losses[-5:]))
+    if rc != 0 or len(losses) != int(argv[argv.index("--steps") + 1]):
+        fail(f"{name}: the launcher returned {rc} after {len(losses)} steps")
+    if f32 is not None:
+        out["first_step"] = check_first_step(cfg, hist[0], f32)
+        print(f"train first step {name} [{card}]: "
+              f"{json.dumps(out['first_step'])}", flush=True)
+    if not all(np.isfinite(losses + norms)):
+        fail(f"{name}: non-finite loss or gradient norm: {out}")
+    if not out["last5_mean_loss"] < losses[0]:
+        fail(f"{name}: the loss did not fall: {out}")
+    if ckpt is not None:
+        ev = ts_lib.make_eval_step(cfg)
+        batch = first_batch(torch, cfg, B, S)
+        trained = float(ev(rec["params"], batch)["loss"])
+        restored, step = ckpt_lib.restore(str(ckpt),
+                                          like={"params": rec["params"]})
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_paths(rec["params"]), tree_paths(restored["params"])))
+        back = float(ev(restored["params"], batch)["loss"])
+        out["checkpoint"] = {"step": step, "eval_loss": trained,
+                             "restored_eval_loss": back,
+                             "leaves_equal": same,
+                             "bytes": sum(f.stat().st_size
+                                          for f in ckpt.iterdir())}
+        del restored
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if step != len(losses) or not same or back != trained:
+            fail(f"{name}: the restored checkpoint differs: "
+                 f"{out['checkpoint']}")
+    del rec
+    free_card(torch)
+    line = {k: v for k, v in out.items() if k not in ("step_s",)}
+    print(f"train {name} [{card}]: {json.dumps(line)}", flush=True)
+    return out
+
+
+def run_serve_launcher(torch, card: str) -> dict:
+    """11c: ``launch.serve.main`` on the card at its smoke size with
+    SERVE_REQUESTS requests; its JSON result must account for every
+    request."""
+    import io
+    from repro_torch.launch import serve as serve_launch
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_launch.main(["--arch", "starcoder2-3b", "--n-requests",
+                                str(SERVE_REQUESTS), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    res = json.loads(text[text.index("\n{") + 1:])
+    out = {"rc": rc, "wall_s": wall, "n_tasks": res.get("n_tasks"),
+           "completed": len(res.get("completion_order", [])),
+           "device": res.get("device"),
+           "mean_response_time_s": res.get("mean_response_time"),
+           "scheduler_overhead_ms_per_task":
+               res.get("scheduler_overhead_ms_per_task")}
+    if rc != 0 or out["n_tasks"] != SERVE_REQUESTS or \
+            out["completed"] != SERVE_REQUESTS or out["device"] != "cuda":
+        fail(f"serve launcher: {out}")
+    print(f"serve launcher [{card}]: {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_training(torch, card: str) -> dict:
+    """Phase 11: 11a starcoder2-3b and 11b mamba2-1.3b through
+    ``launch.train``, one model on the card at a time, then 11c
+    ``launch.serve``."""
+    out = {name: run_train(torch, name, card) for name in TRAIN_RUNS}
+    out["serve"] = run_serve_launcher(torch, card)
+    free_card(torch)
     return out
 
 
@@ -2459,6 +2867,14 @@ def main() -> int:
 
     # -- phase 9: the recurrent families, each alone on the card
     record["recurrent"] = run_recurrent(torch, KERNELS[:2], inputs, card)
+    save_record(record)
+
+    # -- phase 10: the multimodal and encoder-decoder families
+    record["multimodal"] = run_multimodal(torch, inputs, card)
+    save_record(record)
+
+    # -- phase 11: training and the launchers
+    record["training"] = run_training(torch, card)
     record["run_s"] = time.perf_counter() - started
     save_record(record)
     print(f"chip_smoke: {record['run_s']:.1f} s", flush=True)

@@ -6,24 +6,39 @@ is the counterpart of ``repro.models.transformer``, and so on.  It imports
 (configs, RULEGEN, priorities, the chunk scheduler, the block allocator) are
 kept here as copies, pinned to the reference by ``tests/test_torch_*.py``.
 
-What is ported is the serving engine on the attention-only model families
-(dense and MoE stacks, with full or sliding-window attention; the
-recurrent, multimodal and encoder-decoder families are refused, naming
-their ROADMAP items): every valid row of the reference's configuration
-matrix (batch mode; continuous stall admission on the contiguous or paged
-cache; continuous chunked prefill on the paged cache; the prefix cache),
-driven by any policy, with the bulk lane, and its observability
-(``repro_torch.obs``: lifecycle traces, metrics, SLO monitor, calibration
-ledger); and multi-replica serving with fault injection
-(``serving.router``, ``serving.faults``, ``serving.replica.ReplicatedEngine``;
-R engines on one card share the parameters, each with its own page pool
-and CUDA graphs).  The paged rows' two attention kernels are hand-written
-CUDA for Hopper (``csrc/*.cu``), like the four other kernels of the
-reference; see ``repro_torch.kernels``.
+What is ported:
+
+  * the serving engine on every family the reference's engine serves: the
+    dense and MoE stacks, with full or sliding-window attention, and the
+    recurrent stacks (Mamba-2; RG-LRU with local attention), on every
+    valid row of the reference's configuration matrix for the family
+    (batch mode; continuous stall admission on the contiguous or paged
+    cache; continuous chunked prefill on the paged cache; the prefix
+    cache; windows and recurrent state on the contiguous rows only),
+    driven by any policy, with the bulk lane, and its observability
+    (``repro_torch.obs``: lifecycle traces, metrics, SLO monitor,
+    calibration ledger);
+  * multi-replica serving with fault injection (``serving.router``,
+    ``serving.faults``, ``serving.replica.ReplicatedEngine``; R engines on
+    one card share the parameters, each with its own page pool and CUDA
+    graphs);
+  * the vlm and encoder-decoder families at model level (``model.prefill``
+    / ``decode_step``, ``generate.generate`` with ``patches=`` /
+    ``frames=``), as the reference serves them: its engine builds batches
+    of tokens only, and the port's refuses them;
+  * training (``repro_torch.training``: ``model.lm_loss``, AdamW and
+    Adafactor, the train step, the synthetic data, checkpoints in the
+    reference's format) and the launchers ``launch.train`` and
+    ``launch.serve``, on one device (sharding is not ported).
+
+The paged rows' two attention kernels are hand-written CUDA for Hopper
+(``csrc/*.cu``), like the four other kernels of the reference; see
+``repro_torch.kernels``.
 
 Unlike the functional JAX package, the port updates state in place: page
-pools, per-slot positions and ring caches are mutated by the model functions
-that own them, and each docstring says so.
+pools, per-slot positions, ring caches and, in training, the parameters
+and the optimizer state are mutated by the functions that own them, and
+each docstring says so.
 
 Every entry point takes a ``device`` and runs on ``cuda`` unless the caller
 passes ``device="cpu"``; ``resolve_device`` raises when no card is present.

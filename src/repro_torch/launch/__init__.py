@@ -1,2 +1,3 @@
-"""Launch layer of the port: the replica device groups
+"""Launch layer of the port: the training and serving launchers
+(``launch.train``, ``launch.serve``) and the replica device groups
 (``launch.mesh.replica_groups``) of multi-replica serving."""

@@ -1,9 +1,12 @@
-"""Top-level model API (PyTorch port of ``repro.models.model``), serving
-subset, for the dense and MoE stacks (``transformer.layer_kinds``) with
-full or sliding-window attention, and the recurrent stacks (Mamba-2,
-RG-LRU with local attention) on the contiguous caches:
+"""Top-level model API (PyTorch port of ``repro.models.model``) for every
+family: the dense and MoE stacks (``transformer.layer_kinds``) with full
+or sliding-window attention, the recurrent stacks (Mamba-2, RG-LRU with
+local attention), the vlm decoder behind its projected patches and the
+encoder-decoder (a bidirectional encoder, ``cross`` decoder layers):
 
   * ``init_params(cfg, generator, device)``           parameter dict
+  * ``lm_loss(params, cfg, batch)``                   training loss, metrics
+  * ``encode``                                        the encdec encoder
   * ``prefill`` / ``decode_step``                     ring cache (batch mode,
                                                       bulk lane, per-slot)
   * ``decode_steps``                                  per-slot decode windows
@@ -13,22 +16,48 @@ RG-LRU with local attention) on the contiguous caches:
   * ``prefill_chunks``                                fused ragged prefill
   * ``prefill_chunk``                                 one chunk of one prompt
 
+Batches, as the reference lays them out: ``tokens`` / ``labels`` (B, S)
+int32 for every family; a vlm adds ``patches`` (B, num_patch_tokens, D)
+stub ViT embeddings, projected and put before the tokens (positions run
+over patches then tokens; the loss covers the text positions); an encdec
+adds ``frames`` (B, encoder_seq_len, D) stub audio embeddings, which the
+encoder turns into the memory the ``cross`` layers attend to.  The vlm
+and encdec families run at model level (``prefill``, ``decode_step``,
+``lm_loss``, ``generate``), as in the reference, whose engine builds
+batches of tokens only.
+
 Caches are updated IN PLACE (the reference returns new caches); each
-function returns only its outputs, and like the reference's serving
-functions none returns the MoE aux losses (``transformer.apply_stack``
-does).  ``decode_steps`` and
-``decode_steps_paged`` replace the reference's ``lax.scan`` with a Python
-loop whose tokens stay on the device, so a window costs no host round
-trip.  The functions the engine captures in CUDA graphs (both decode
-windows, both stall admissions, ``prefill_chunks``) read no device value
-on the host: slot indices may be 1-element device tensors.
+serving function returns only its outputs, and like the reference's
+serving functions none returns the MoE aux losses (``lm_loss`` does).
+``decode_steps`` and ``decode_steps_paged`` replace the reference's
+``lax.scan`` with a Python loop whose tokens stay on the device, so a
+window costs no host round trip.  The functions the engine captures in
+CUDA graphs (both decode windows, both stall admissions,
+``prefill_chunks``) read no device value on the host: slot indices may be
+1-element device tensors.  ``lm_loss`` runs with autograd; the serving
+functions run under ``torch.no_grad``.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
-from . import layers, transformer
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from . import layers, multimodal, transformer
+
+
+def init_encoder(cfg, generator: torch.Generator, dtype, device) -> dict:
+    """The bidirectional encoder of an encdec config (seamless's audio
+    backbone): ``num_encoder_layers`` attention + MLP blocks as a list,
+    the reference's vmapped ``blocks`` one tree a layer, and a final
+    norm."""
+    return {"blocks": [transformer.init_attn_mlp_block(generator, cfg, dtype,
+                                                       device)
+                       for _ in range(cfg.num_encoder_layers)],
+            "final_ln": torch.zeros((cfg.d_model,), dtype=dtype,
+                                    device=device)}
 
 
 def init_params(cfg, generator: torch.Generator, device,
@@ -36,20 +65,137 @@ def init_params(cfg, generator: torch.Generator, device,
     """Seeded random parameters at the reference's init scales (dense
     0.02, embedding 1/sqrt(D), norms zero; MoE routers, the SSD mixers'
     ``A_log`` / ``dt_bias`` / ``D`` and the RG-LRU's ``b_a`` / ``b_i`` /
-    ``Lambda`` in float32).
+    ``Lambda`` in float32), with an ``encoder`` for an encdec config and
+    the ``frontend_proj`` projector for one with a frontend.
     ``generator`` must live on ``device``; ``dtype`` defaults to
     ``cfg.param_dtype``."""
     dtype = dtype or getattr(torch, cfg.param_dtype)
-    return {
+    params = {
         "embed": layers.init_embedding(generator, cfg, dtype, device),
         "layers": transformer.init_stack(generator, cfg, dtype, device),
         "final_ln": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
     }
+    if cfg.family == "encdec":
+        params["encoder"] = init_encoder(cfg, generator, dtype, device)
+    if cfg.frontend or cfg.family == "encdec":
+        params["frontend_proj"] = multimodal.init_projector(generator, cfg,
+                                                            dtype, device)
+    return params
 
 
 def _final_logits(params, cfg, x):
     x = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
     return layers.logits(params["embed"], x, cfg).float()
+
+
+# ---------------------------------------------------------------------------
+# encoder and decoder inputs
+# ---------------------------------------------------------------------------
+
+
+def _encoder_layer(p, x, positions, cfg):
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = layers.attention_qkv(p["attn"], h, positions, cfg.rope_theta)
+    attn = layers.chunked_attention(q, k, v, q_positions=positions,
+                                    kv_positions=positions, causal=False)
+    x = x + layers.attention_out(p["attn"], attn)
+    return x + layers.apply_mlp(
+        p["mlp"], layers.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.mlp_act)
+
+
+def encode(params: dict, cfg, frames: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
+    """frames (B, Te, D) stub frontend embeddings -> the encoder memory
+    (B, Te, D): projected, then every encoder layer with bidirectional
+    attention (rope over ``arange(Te)``), then the final norm.  ``remat``
+    recomputes each layer in the backward pass."""
+    x = multimodal.apply_projector(params["frontend_proj"], frames)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for p in params["encoder"]["blocks"]:
+        if remat:
+            x = checkpoint(_encoder_layer, p, x, positions, cfg,
+                           use_reentrant=False)
+        else:
+            x = _encoder_layer(p, x, positions, cfg)
+    return layers.rms_norm(x, params["encoder"]["final_ln"], cfg.norm_eps)
+
+
+def _decoder_inputs(params: dict, cfg, tokens: torch.Tensor,
+                    patches: Optional[torch.Tensor],
+                    frames: Optional[torch.Tensor], remat: bool = False):
+    """(x, ctx, num_prefix): the embedded tokens, behind the projected
+    patches (cast to the embedding dtype) for a vision frontend; ctx
+    with ``positions`` over all of x and, for an encdec config, the
+    encoder memory ``enc_out``; num_prefix the patch positions."""
+    x = layers.embed(params["embed"], tokens, cfg)
+    num_prefix = 0
+    if cfg.frontend == "vision":
+        if patches is None:
+            raise ValueError(f"{cfg.name}: a vision config takes patches=")
+        pe = multimodal.apply_projector(params["frontend_proj"],
+                                        patches).to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+        num_prefix = pe.shape[1]
+    ctx = {"positions": torch.arange(x.shape[1], device=x.device),
+           "enc_out": None}
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encdec config takes frames=")
+        ctx["enc_out"] = encode(params, cfg, frames, remat=remat)
+    return x, ctx, num_prefix
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+
+def chunked_xent(params: dict, cfg, x: torch.Tensor, labels: torch.Tensor,
+                 chunk: int = 1024):
+    """x (B, S, D) final hidden states; labels (B, S), < 0 ignored.  The
+    sum of the per-token NLL and the token count (float32 scalars), over
+    sequence chunks of ``chunk`` as the reference sums them, so the
+    (B, S, V) logits never exist at once."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, S, chunk):
+        lc = labels[:, lo:lo + chunk].long()
+        logits = layers.logits(params["embed"], x[:, lo:lo + chunk],
+                               cfg).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+        mask = (lc >= 0).float()
+        nll_sum = nll_sum + ((logz - ll) * mask).sum()
+        count = count + mask.sum()
+    return nll_sum, count
+
+
+def lm_loss(params: dict, cfg, batch: dict, *, remat: bool = False):
+    """Causal-LM loss: the hidden state at text position t predicts
+    ``labels[t]`` (labels < 0 ignored), plus the MoE aux loss.  ``batch``
+    holds ``tokens``, ``labels`` and, by family, ``patches`` or
+    ``frames``.  Returns (loss, metrics): ``loss``, ``xent``, ``tokens``
+    (the count), ``moe_aux_loss`` and ``moe_drop_frac``, float32 scalars
+    on the device.  Runs with autograd; ``remat`` recomputes each layer
+    (decoder and encoder) in the backward pass."""
+    x, ctx, num_prefix = _decoder_inputs(
+        params, cfg, batch["tokens"], batch.get("patches"),
+        batch.get("frames"), remat=remat)
+    x, aux = transformer.apply_stack(params["layers"], x, ctx, cfg, None,
+                                     "train", remat=remat)
+    x = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    if num_prefix:
+        x = x[:, num_prefix:]
+    nll_sum, count = chunked_xent(params, cfg, x, batch["labels"])
+    xent = nll_sum / torch.clamp(count, min=1.0)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    moe_aux = zero + aux["moe_aux_loss"]
+    loss = xent + moe_aux
+    return loss, {"loss": loss, "xent": xent, "tokens": count,
+                  "moe_aux_loss": moe_aux,
+                  "moe_drop_frac": zero + aux["moe_drop_frac"]}
 
 
 # ---------------------------------------------------------------------------
@@ -59,17 +205,21 @@ def _final_logits(params, cfg, x):
 
 @torch.no_grad()
 def prefill(params: dict, cfg, tokens: torch.Tensor, max_len: int,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=torch.bfloat16, *,
+            patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None):
     """Run the (B, S) prompt through the stack, building a ring cache of
-    capacity ``min(window, max_len)``.  Returns (cache, last_logits (B, V)
-    f32)."""
-    B, S = tokens.shape
-    x = layers.embed(params["embed"], tokens, cfg)
+    capacity ``min(window, max_len)``.  A vlm config takes ``patches``
+    (B, P, D), which take positions 0..P-1 before the tokens (so
+    ``max_len`` must cover P + S + the tokens to decode); an encdec config
+    takes ``frames`` (B, Te, D), whose projected encoder K/V each
+    ``cross`` layer's cache keeps.  Returns (cache, last_logits (B, V)
+    f32) at the last text position."""
+    x, ctx, _ = _decoder_inputs(params, cfg, tokens, patches, frames)
+    B, S = x.shape[0], x.shape[1]
     cache = transformer.init_cache(cfg, B, max_len, cache_dtype,
                                    tokens.device)
-    positions = torch.arange(S, device=tokens.device)
-    x, _ = transformer.apply_stack(params["layers"], x,
-                                   {"positions": positions}, cfg, cache,
+    x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
                                    "prefill")
     last_logits = _final_logits(params, cfg, x[:, -1:])[:, 0]
     # a fill, not a host-to-device copy of a Python int: a CUDA graph

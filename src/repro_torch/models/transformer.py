@@ -1,6 +1,9 @@
 """Decoder stacks (PyTorch port of ``repro.models.transformer``): dense
-and MoE, with full or sliding-window attention; Mamba-2 (``ssm``); and
-Griffin's RG-LRU blocks with local attention (``hybrid``).
+and MoE, with full or sliding-window attention; Mamba-2 (``ssm``);
+Griffin's RG-LRU blocks with local attention (``hybrid``); the vlm
+decoder (dense layers behind projected patches); and the encoder-decoder
+decoder, whose ``cross`` layers add cross attention to the encoder
+memory.
 
 The reference's stack layout (``stack_pattern``: the dense prefix, the
 scanned groups, the tail) is kept as a flat list of per-layer parameter
@@ -13,7 +16,10 @@ one entry per layer:
     ``min(window, max_len)`` rows (``local_window`` for ``attn_local``),
     an ``ssm`` layer ``{"conv", "ssd"}`` and a ``rec`` layer ``{"conv",
     "h"}`` (the conv tail in the cache dtype, the recurrent state in
-    float32); W is the attention rings' width, 1 for an ``ssm`` stack;
+    float32); a ``cross`` layer adds ``enc_k`` / ``enc_v`` (B,
+    encoder_seq_len, KV, D), the projected encoder memory a prefill
+    writes and decode attends to; W is the attention rings' width, 1 for
+    an ``ssm`` stack;
   * the per-slot ring cache of the contiguous continuous engine
     (``init_slot_cache``): the same layers with ``pos`` (C,) and
     ``slot_pos`` (C, W), one independent sequence a row;
@@ -34,9 +40,14 @@ on the CPU.
 A prefill replaces a recurrent layer's state leaves with the ones it
 computed (in the compute dtype, as the reference returns them); every
 other write, decode included, goes into the cache's own tensors, which
-is what the engine's CUDA graphs bind.  The recurrent families have no
-paged cache (``paged_supported``), and the multimodal and
-encoder-decoder families are not ported yet (``check_ported``).
+is what the engine's CUDA graphs bind.  The recurrent, multimodal and
+encoder-decoder families have no paged cache (``paged_supported``).
+
+``apply_stack(..., mode="train")`` is the training forward: no cache, no
+write into any tensor it was given, so autograd runs through it; with
+``remat=True`` each layer runs under ``torch.utils.checkpoint``, the
+counterpart of the reference's ``jax.checkpoint`` over its scanned
+superblocks.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..kernels import chunked_prefill_attention as cpa_kernel
@@ -61,27 +73,12 @@ EMPTY_POS = 2**30
 # ---------------------------------------------------------------------------
 
 
-# the families still to port, and their ROADMAP items
-_UNPORTED = {"vlm": "9e", "encdec": "9f"}
-
-
-def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a family
-    the port does not serve yet (any ``frontend`` is item 9e's)."""
-    item = _UNPORTED.get(cfg.family) or ("9e" if cfg.frontend else None)
-    if item is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"PyTorch yet (ROADMAP Queue 1 item {item})")
-
-
 def stack_pattern(cfg):
     """(pattern, n_repeats, prefix_kinds, tail_kinds) of the reference
-    (transformer.py:513) for the ported families: MoE stacks lead with
-    ``num_dense_layers`` dense layers; a hybrid repeats its
-    ``block_pattern`` and ends in the pattern's first
-    ``num_layers % len(pattern)`` kinds."""
-    check_ported(cfg)
+    (transformer.py:513): MoE stacks lead with ``num_dense_layers`` dense
+    layers; a hybrid repeats its ``block_pattern`` and ends in the
+    pattern's first ``num_layers % len(pattern)`` kinds; an encdec
+    decoder is ``cross`` layers, a vlm decoder dense ones."""
     if cfg.family == "moe":
         return (("moe",), cfg.num_layers - cfg.num_dense_layers,
                 ("dense",) * cfg.num_dense_layers, ())
@@ -91,7 +88,8 @@ def stack_pattern(cfg):
         pat = cfg.block_pattern or ("rec", "rec", "attn_local")
         n = cfg.num_layers // len(pat)
         return pat, n, (), pat[:cfg.num_layers - n * len(pat)]
-    return ("dense",), cfg.num_layers, (), ()
+    kind = "cross" if cfg.family == "encdec" else "dense"
+    return (kind,), cfg.num_layers, (), ()
 
 
 def layer_kinds(cfg) -> tuple:
@@ -107,7 +105,7 @@ def kv_cache_capacity(max_len: int, window: Optional[int]) -> int:
 
 
 def init_attn_mlp_block(generator, cfg, dtype, device, *,
-                        use_moe: bool = False) -> dict:
+                        use_moe: bool = False, cross: bool = False) -> dict:
     p = {
         "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
         "attn": layers.init_attention(generator, cfg, dtype, device),
@@ -118,6 +116,9 @@ def init_attn_mlp_block(generator, cfg, dtype, device, *,
     else:
         p["mlp"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff,
                                    cfg.mlp_act, dtype, device)
+    if cross:
+        p["ln_x"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+        p["xattn"] = layers.init_attention(generator, cfg, dtype, device)
     return p
 
 
@@ -143,7 +144,8 @@ def init_stack(generator, cfg, dtype, device) -> list:
         if kind == "rec":
             return init_rec_block(generator, cfg, dtype, device)
         return init_attn_mlp_block(generator, cfg, dtype, device,
-                                   use_moe=kind == "moe")
+                                   use_moe=kind == "moe",
+                                   cross=kind == "cross")
     return [one(kind) for kind in layer_kinds(cfg)]
 
 
@@ -171,8 +173,12 @@ def _layer_cache(kind, cfg, batch, max_len, dtype, device) -> dict:
         return {"conv": z(batch, cfg.ssm_conv_width - 1, lw),
                 "h": z(batch, lw, dt=torch.float32)}
     cap = kv_cache_capacity(max_len, _layer_window(kind, cfg))
-    return {"k": z(batch, cap, cfg.num_kv_heads, cfg.head_dim),
-            "v": z(batch, cap, cfg.num_kv_heads, cfg.head_dim)}
+    c = {"k": z(batch, cap, cfg.num_kv_heads, cfg.head_dim),
+         "v": z(batch, cap, cfg.num_kv_heads, cfg.head_dim)}
+    if kind == "cross":
+        enc = (batch, cfg.encoder_seq_len, cfg.num_kv_heads, cfg.head_dim)
+        c["enc_k"], c["enc_v"] = z(*enc), z(*enc)
+    return c
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -489,6 +495,28 @@ def _attn_chunks_paged(p, x, pages_k, pages_v, ctx, cfg):
     return x + layers.attention_out(p["attn"], attn)
 
 
+def _project_enc_kv(p, enc_out):
+    """Per-layer K/V projections of the shared encoder memory (no rope)."""
+    enc_k = torch.einsum("bsd,dhk->bshk", enc_out, p["xattn"]["wk"])
+    enc_v = torch.einsum("bsd,dhk->bshk", enc_out, p["xattn"]["wv"])
+    return enc_k, enc_v
+
+
+def _cross_attn(p, x, enc_k, enc_v, cfg):
+    """Cross attention against the projected encoder memory: no rope on
+    either side, and every query at position ``Te``, so each sees all Te
+    encoder rows (the reference's transformer.py:355)."""
+    h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p["xattn"]["wq"])
+    Te = enc_k.shape[1]
+    pos_q = torch.full((x.shape[1],), Te, dtype=torch.int32, device=x.device)
+    attn = layers.chunked_attention(
+        q, enc_k, enc_v, q_positions=pos_q,
+        kv_positions=torch.arange(Te, dtype=torch.int32, device=x.device),
+        causal=False)
+    return x + torch.einsum("bshk,hkd->bsd", attn, p["xattn"]["wo"])
+
+
 def _refuse_paged(kind: str, mode: str) -> None:
     """The paged modes take only dense and MoE layers (the reference's
     ``apply_block_chunk`` / ``apply_block_chunks``)."""
@@ -503,11 +531,12 @@ def _recurrent_layer(kind, p, x, cfg, lc, mode):
     """An ``ssm`` layer, ``x + mixer(rms_norm(x))`` with no MLP, or a
     ``rec`` layer, ``mlp_part(x + rec(rms_norm(x)))``.  A prefill starts
     from the layer cache's state, as the reference does, and replaces its
-    leaves; a decode step updates them in place."""
-    if mode not in ("prefill", "decode"):
+    leaves (a training forward has no cache); a decode step updates them
+    in place."""
+    if mode not in ("prefill", "train", "decode"):
         _refuse_paged(kind, mode)
     h = rms_norm(x, p["ln" if kind == "ssm" else "ln1"], cfg.norm_eps)
-    if mode == "prefill":
+    if mode != "decode":
         apply = (ssm.apply_mamba2 if kind == "ssm"
                  else rglru.apply_recurrent_block)
         y, state = apply(p["mixer" if kind == "ssm" else "rec"], h, cfg, lc)
@@ -536,47 +565,72 @@ def _moe_part(p, x, cfg):
 # ---------------------------------------------------------------------------
 
 
+def _apply_layer(kind, p, x, ctx, cfg, lc, mode):
+    """One layer of any kind in any mode.  Returns (x, aux): a MoE
+    layer's aux dict, None for the other kinds."""
+    if kind in ("ssm", "rec"):
+        return _recurrent_layer(kind, p, x, cfg, lc, mode), None
+    window = _layer_window(kind, cfg)
+    if mode in ("prefill", "train"):
+        x, k, v = _attn_seq(p, x, ctx["positions"], cfg, window)
+        if lc is not None:
+            prefill_write_kv(lc["k"], lc["v"], k, v)
+    elif mode == "decode":
+        x = _attn_decode(p, x, lc["k"], lc["v"], ctx["pos"],
+                         ctx["slot_pos"], cfg, window)
+    elif kind in ("attn_local", "cross"):
+        _refuse_paged(kind, mode)
+    elif mode == "decode_paged":
+        x = _attn_decode_paged(p, x, lc["k"], lc["v"], ctx["pos"],
+                               ctx["tables"], cfg, ctx["use_kernels"])
+    elif mode == "chunk":
+        x = _attn_chunk_paged(p, x, lc["k"], lc["v"], ctx["positions"],
+                              ctx["table_row"], cfg, ctx["use_kernels"])
+    elif mode == "chunks":
+        x = _attn_chunks_paged(p, x, lc["k"], lc["v"], ctx, cfg)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    if kind == "cross":
+        if mode == "decode":
+            enc_k, enc_v = lc["enc_k"], lc["enc_v"]
+        else:
+            enc_k, enc_v = _project_enc_kv(p, ctx["enc_out"])
+            if lc is not None:
+                lc["enc_k"].copy_(enc_k)
+                lc["enc_v"].copy_(enc_v)
+        x = _cross_attn(p, x, enc_k, enc_v, cfg)
+    if kind == "moe":
+        return _moe_part(p, x, cfg)
+    return _mlp_part(p, x, cfg), None
+
+
 def apply_stack(stack: list, x: torch.Tensor, ctx: dict, cfg,
-                cache: Optional[dict], mode: str):
-    """Run every layer; ``mode`` is ``prefill`` (fills a contiguous
-    cache), ``decode`` (a contiguous cache, batch or per-slot; its
-    ``slot_pos`` already holds the step's position, ``decode_slot_pos``),
+                cache: Optional[dict], mode: str, remat: bool = False):
+    """Run every layer; ``mode`` is ``train`` (no cache: the training
+    forward), ``prefill`` (fills a contiguous cache when one is given),
+    ``decode`` (a contiguous cache, batch or per-slot; its ``slot_pos``
+    already holds the step's position, ``decode_slot_pos``),
     ``decode_paged``, ``chunk`` or ``chunks`` (the paged cache, dense and
-    MoE layers only).  Caches are updated in place.  Returns (hidden
+    MoE layers only).  ``ctx`` carries ``positions`` (and ``enc_out``, the
+    encoder memory, for ``cross`` layers) in the sequence modes, the
+    step's ``pos`` and the cache's bookkeeping in the others.  Caches are
+    updated in place.  ``remat`` (train only) recomputes each layer in the
+    backward pass instead of keeping its activations.  Returns (hidden
     states, aux): the MoE layers' ``moe_aux_loss`` and ``moe_drop_frac``
     summed over the layers, as the reference's ``apply_stack``; 0.0 for a
     stack without MoE layers."""
+    if mode == "train" and cache is not None:
+        raise ValueError("mode='train' takes no cache")
     aux = {"moe_aux_loss": 0.0, "moe_drop_frac": 0.0}
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), stack)):
         lc = cache["layers"][i] if cache is not None else None
-        if kind in ("ssm", "rec"):
-            x = _recurrent_layer(kind, p, x, cfg, lc, mode)
-            continue
-        window = _layer_window(kind, cfg)
-        if mode == "prefill":
-            x, k, v = _attn_seq(p, x, ctx["positions"], cfg, window)
-            if lc is not None:
-                prefill_write_kv(lc["k"], lc["v"], k, v)
-        elif mode == "decode":
-            x = _attn_decode(p, x, lc["k"], lc["v"], ctx["pos"],
-                             ctx["slot_pos"], cfg, window)
-        elif kind == "attn_local":
-            _refuse_paged(kind, mode)
-        elif mode == "decode_paged":
-            x = _attn_decode_paged(p, x, lc["k"], lc["v"], ctx["pos"],
-                                   ctx["tables"], cfg, ctx["use_kernels"])
-        elif mode == "chunk":
-            x = _attn_chunk_paged(p, x, lc["k"], lc["v"], ctx["positions"],
-                                  ctx["table_row"], cfg, ctx["use_kernels"])
-        elif mode == "chunks":
-            x = _attn_chunks_paged(p, x, lc["k"], lc["v"], ctx, cfg)
+        if remat and mode == "train":
+            x, a = checkpoint(_apply_layer, kind, p, x, ctx, cfg, lc, mode,
+                              use_reentrant=False)
         else:
-            raise ValueError(f"unknown mode {mode!r}")
-        if kind == "moe":
-            x, a = _moe_part(p, x, cfg)
+            x, a = _apply_layer(kind, p, x, ctx, cfg, lc, mode)
+        if a is not None:
             aux = {k: aux[k] + a[k] for k in aux}
-        else:
-            x = _mlp_part(p, x, cfg)
     return x, aux
 
 

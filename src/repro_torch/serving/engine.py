@@ -4,7 +4,8 @@ Port of ``repro.serving.engine`` on the dense and MoE stacks, full
 attention on every row, and on the sliding-window and recurrent (Mamba-2,
 RG-LRU with local attention) stacks on the contiguous rows (the paged
 cache refuses a window and recurrent state, as the reference's
-``transformer.paged_supported`` does).  A
+``transformer.paged_supported`` does); the vlm and encdec families are
+refused (``refuse_frontends``).  A
 request goes through RULEGEN features and the m_theta uncertainty ``u``,
 then UASCHED priority and admission (a request the policy offloads goes
 to the bulk lane), and runs in one of the reference's two modes:
@@ -66,8 +67,10 @@ survivor.  ``serve(step_offset=)`` continues a replica's step coordinate
 across the failover rounds of ``serving.replica.ReplicatedEngine``.  With
 no plan the result carries no fault key.
 
-Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-item: the vlm and encdec families (items 9e-9f).
+The vlm and encdec families are served at model level only
+(``model.prefill`` / ``decode_step``, ``generate.generate``), as in the
+reference, whose engine builds batches of tokens only: the engine
+refuses them when it is built (``refuse_frontends``).
 """
 
 from __future__ import annotations
@@ -157,6 +160,23 @@ def _index(i: int) -> np.ndarray:
     return np.array([i], np.int32)
 
 
+def refuse_frontends(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config whose prompts need more
+    than tokens: a vlm's ``patches``, an encdec's ``frames``.  The
+    engine's requests carry text only and its batches hold ``tokens``
+    only, as the reference's (src/repro/serving/engine.py:1099, :1141);
+    the reference builds such an engine and fails at its first prefill
+    (ROADMAP Queue 3 entry R4).  These families are served at model level
+    (``model.prefill`` / ``decode_step``, ``generate.generate``)."""
+    if cfg.family in ("vlm", "encdec") or cfg.frontend:
+        need = "frames" if cfg.family == "encdec" else "patches"
+        raise NotImplementedError(
+            f"{cfg.name}: the serving engine builds batches of tokens only "
+            f"and the {cfg.family!r} family also needs {need}; serve it at "
+            "model level (model.prefill / generate.generate; ROADMAP "
+            "Queue 3 entry R4)")
+
+
 class ServingEngine:
     """Single-node engine with a pluggable scheduling policy.
 
@@ -230,9 +250,7 @@ class ServingEngine:
             raise ValueError('faults (serving.faults.ReplicaFaults) '
                              'require mode="continuous", '
                              'prefill="stall"')
-        # what the port does not serve yet: the multimodal and
-        # encoder-decoder families
-        transformer.check_ported(cfg)
+        refuse_frontends(cfg)
         emb = params["embed"]["embedding"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params on {emb.device}, engine device "

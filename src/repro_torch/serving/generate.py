@@ -3,7 +3,8 @@
 
 ``generate`` is host-loop greedy decoding of a batch over the contiguous
 ring cache, with early exit when every row is done: the engine's batch
-mode and bulk lane.  ``prefill_chunked`` drives one prompt through the
+mode and bulk lane, and the vlm and encdec families' serving path at
+model level (``patches=`` / ``frames=``).  ``prefill_chunked`` drives one prompt through the
 single-chunk paged prefill (``model.prefill_chunk``), chunk by chunk: what
 the reference's ``make_chunk_prefill_fn`` executable is called for.  Both
 run eagerly.
@@ -37,15 +38,20 @@ PAD_ID = 0
 
 @torch.no_grad()
 def generate(params, cfg, tokens: torch.Tensor, *, max_new_tokens: int,
-             eos_id: int = 1, max_lens=None):
-    """Greedy-decode the (B, S) batch ``tokens``.  Returns (tokens
+             eos_id: int = 1, max_lens=None, patches=None, frames=None):
+    """Greedy-decode the (B, S) batch ``tokens`` (a vlm config's
+    ``patches`` or an encdec config's ``frames`` go to ``model.prefill``;
+    the cache then also holds the patch positions).  Returns (tokens
     (B, T <= max_new_tokens) i32, lengths (B,) i32), both on the device.
 
     ``max_lens``: optional (B,) per-row output caps; a row stops
     contributing at its cap, but the batch steps until its LONGEST row
     finishes (the run-to-completion head-of-line effect)."""
     max_len = tokens.shape[1] + max_new_tokens + 8
-    cache, last_logits = model_lib.prefill(params, cfg, tokens, max_len)
+    if cfg.frontend == "vision":
+        max_len += cfg.num_patch_tokens
+    cache, last_logits = model_lib.prefill(params, cfg, tokens, max_len,
+                                           patches=patches, frames=frames)
     B = tokens.shape[0]
     dev = tokens.device
     token = torch.argmax(last_logits, -1).to(torch.int32)[:, None]

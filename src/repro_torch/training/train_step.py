@@ -1,0 +1,52 @@
+"""The training step (PyTorch port of ``repro.training.train_step``):
+loss -> autograd backward -> global-norm clip -> optimizer update."""
+
+from __future__ import annotations
+
+import torch
+
+from ..models import model as model_lib
+from ..tree import tree_map, tree_paths, tree_set
+from . import optimizer as opt_lib
+
+
+def make_train_step(cfg, opt: opt_lib.Optimizer, *, remat: bool = True,
+                    clip_norm: float = 1.0):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics).  The parameters and the optimizer state are updated in
+    place (and returned); the first call marks every parameter
+    ``requires_grad``.  ``metrics``: ``model.lm_loss``'s plus
+    ``grad_norm``, the norm before clipping, detached float32 scalars on
+    the device."""
+
+    def train_step(params, opt_state, batch):
+        paths = tree_paths(params)
+        leaves = [p.requires_grad_(True) for _, p in paths]
+        loss, metrics = model_lib.lm_loss(params, cfg, batch, remat=remat)
+        grads = torch.autograd.grad(loss, leaves)
+        tree = tree_map(lambda p: None, params)
+        for (path, _), g in zip(paths, grads):
+            tree_set(tree, path, g)
+        del grads, loss
+        with torch.no_grad():
+            tree, grad_norm = opt_lib.clip_by_global_norm(tree, clip_norm)
+            updates, opt_state = opt.update(tree, opt_state, params)
+            del tree
+            opt_lib.apply_updates(params, updates)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = grad_norm
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg):
+    """Returns eval_step(params, batch) -> ``model.lm_loss``'s metrics,
+    without autograd."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = model_lib.lm_loss(params, cfg, batch, remat=False)
+        return metrics
+
+    return eval_step

@@ -298,16 +298,31 @@ def test_defaults_are_the_references_and_are_refused(setup):
     assert _tokens(res) == _tokens(want)
 
 
-def test_other_families_are_refused(setup):
-    """The multimodal and encoder-decoder families are not served yet
-    (ROADMAP Queue 1 items 9e-9f)."""
-    cfg = configs.get_smoke_config("llava-next-mistral-7b")
+@pytest.mark.parametrize("name,key", [("llava-next-mistral-7b", "patches"),
+                                      ("seamless-m4t-large-v2", "frames")])
+def test_other_families_are_refused(setup, name, key):
+    """The vlm and encdec families are served at model level only
+    (ROADMAP Queue 3 entry R4): the port's engine refuses them when it is
+    built, on the default row and on the paged one; the reference's engine
+    builds and fails at its first prefill, whose batch holds tokens only
+    (``_decoder_inputs`` reads ``batch["patches"]`` / ``["frames"]``)."""
+    cfg = configs.get_smoke_config(name)
     pcfg = setup["tprof"].policy_config()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tengine.ServingEngine(
-            setup["tp"], cfg,
-            tsched.POLICIES["fifo"](setup["tpersona"], pcfg),
-            setup["tprof"], device="cpu", **_engine_kw(1))
+    for kw in ({}, _engine_kw(1)):
+        with pytest.raises(NotImplementedError,
+                           match="Queue 3 entry R4") as got:
+            tengine.ServingEngine(
+                setup["tp"], cfg,
+                tsched.POLICIES["fifo"](setup["tpersona"], pcfg),
+                setup["tprof"], device="cpu", **kw)
+        assert key in str(got.value)
+    jpcfg = setup["jprof"].policy_config()
+    eng = jengine.ServingEngine(
+        jm.init_params(jax.random.PRNGKey(0), cfg), cfg,
+        jsched.POLICIES["fifo"](setup["jpersona"], jpcfg), setup["jprof"],
+        input_bucket=BUCKET, max_new_tokens=2, eos_id=-1)
+    with pytest.raises(KeyError, match=key):
+        eng.serve(_requests(jengine, setup["test"][:2], caps=[2, 2]))
 
 
 def test_no_card_raises_unless_cpu_is_asked_for(setup, monkeypatch):

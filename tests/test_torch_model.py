@@ -491,20 +491,15 @@ def test_ring_prefill_write_and_slot_pos_match_jax(S):
                                   "llava-next-mistral-7b",
                                   "seamless-m4t-large-v2"])
 def test_non_dense_families_are_refused(name):
-    """The families still to port (vlm, encdec) raise, naming their
-    ROADMAP items 9e-9f.  The recurrent families (ssm, hybrid: items
-    9c-9d, tests/test_torch_recurrent_families.py) are served on the
-    contiguous caches and refuse the paged cache with the reference's
-    exception and message (``transformer.paged_supported``)."""
+    """The recurrent (ssm, hybrid: items 9c-9d,
+    tests/test_torch_recurrent_families.py), vlm and encdec families (items
+    9e-9f, tests/test_torch_multimodal.py) are served on the contiguous
+    caches and refuse the paged cache with the reference's exception and
+    message (``transformer.paged_supported``)."""
     cfg = configs.get_smoke_config(name)
-    if cfg.family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError) as want:
-            jt.init_paged_cache(cfg, 2, 9, 4)
-        with pytest.raises(NotImplementedError) as got:
-            tt.init_paged_cache(cfg, 2, 9, 4, device="cpu")
-        assert str(got.value) == str(want.value)
-        assert f"family {cfg.family!r}" in str(got.value)
-        return
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tm.init_params(cfg, gen, "cpu")
+    with pytest.raises(NotImplementedError) as want:
+        jt.init_paged_cache(cfg, 2, 9, 4)
+    with pytest.raises(NotImplementedError) as got:
+        tt.init_paged_cache(cfg, 2, 9, 4, device="cpu")
+    assert str(got.value) == str(want.value)
+    assert f"family {cfg.family!r}" in str(got.value)

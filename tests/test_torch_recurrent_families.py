@@ -15,8 +15,8 @@ superblock) and cut to 5 layers (one superblock plus the (rec, rec) tail):
     1e-3, greedy tokens, ``pos`` and ``slot_pos`` identical, every state
     leaf within ``assert_kv``'s rule (``generate``, batch mode's loop, is
     held to the JAX engine's in tests/test_torch_recurrent_engine.py);
-  * scope — ``check_ported`` refuses only vlm, encdec and ``frontend``
-    configs, and the paged modes refuse recurrent layers.
+  * scope — every published config builds on the ``meta`` device, and
+    the paged modes refuse recurrent layers.
 """
 
 import dataclasses
@@ -155,15 +155,28 @@ def test_prefill_and_decode_match_jax(models, name):
     es.assert_kv(tc["layers"], jc, cfg)
 
 
-def test_check_ported_refuses_only_vlm_encdec_and_frontends():
-    for name in tconfigs.all_configs():
-        cfg = tconfigs.get_config(name)
-        if cfg.family in ("vlm", "encdec") or cfg.frontend:
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 9[ef]"):
-                tt.check_ported(cfg)
-        else:
-            tt.check_ported(cfg)
+@pytest.mark.parametrize("name", list(tconfigs.ARCH_IDS))
+def test_every_published_config_builds_on_meta(name):
+    """Every family is ported: each published config builds its
+    parameters (encoder and projector included) and its contiguous cache
+    at full width on the ``meta`` device, one entry a layer in
+    ``layer_kinds`` order, each with the reference's cache leaves."""
+    cfg = tconfigs.get_config(name)
+    params = tm.init_params(cfg, torch.Generator(), "meta")
+    kinds = tt.layer_kinds(cfg)
+    assert len(params["layers"]) == len(kinds) == cfg.num_layers
+    assert ("encoder" in params) == (cfg.family == "encdec")
+    assert ("frontend_proj" in params) == bool(cfg.frontend)
+    cache = tt.init_cache(cfg, 1, 64, device="meta")
+    assert len(cache["layers"]) == cfg.num_layers
+    for kind, lc in zip(kinds, cache["layers"]):
+        want = {"ssm": {"conv", "ssd"}, "rec": {"conv", "h"},
+                "cross": {"k", "v", "enc_k", "enc_v"}}.get(kind, {"k", "v"})
+        assert set(lc) == want, (kind, set(lc))
+    if cfg.family == "encdec":
+        assert cache["layers"][0]["enc_k"].shape == (
+            1, cfg.encoder_seq_len, cfg.num_kv_heads, cfg.head_dim)
+        assert len(params["encoder"]["blocks"]) == cfg.num_encoder_layers
 
 
 @pytest.mark.parametrize("mode", ["decode_paged", "chunk", "chunks"])

@@ -1,0 +1,30 @@
+"""PyTorch port: the training step against ``repro.models.model.lm_loss``
+and ``jax.grad`` for the vlm decoder behind its projected patches (llava:
+the loss covers the text positions) and the encoder-decoder (seamless:
+gradients through the encoder, the projector and the cross attention),
+on float32 smoke configs; the checks and their tolerances are
+test_torch_train_step.py's."""
+
+import pytest
+
+pytest.importorskip("torch")
+
+from test_torch_train_step import (  # noqa: E402,F401
+    check_loss_and_grads, check_remat, check_train_step, family, one_thread)
+
+NAMES = ["llava-next-mistral-7b", "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_lm_loss_and_grads(family, name):  # noqa: F811
+    check_loss_and_grads(family(name))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_train_step(family, name):  # noqa: F811
+    check_train_step(family(name))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_remat_equals_no_remat(family, name):  # noqa: F811
+    check_remat(family(name))
