@@ -172,10 +172,23 @@ Phases, in order; any failure exits non-zero:
      every loss and gradient norm finite, the mean of the last five
      losses below the first; seconds a step and peak ``memory_allocated``
      printed.  11c: ``launch.serve.main`` on the card at its smoke size
-     with 16 requests, every request accounted for.  Then the whole run's
-     seconds.
+     with 16 requests, every request accounted for;
+ 12. the sharding layer (``repro_torch.sharding``): one NCCL rank a
+     visible card, spawned, on the mesh (1, world) ("data", "model"),
+     world and mesh printed.  12a: ``launch.train.main --mesh 1x<world>
+     --no-smoke`` on starcoder2-3b at 11a's batch (AdamW, 3 steps), its
+     first step held to 11a's float32 copy under 11a's limits, seconds a
+     step and peak ``memory_allocated``; 12b: mixtral-8x22b's MoE layer
+     alone at full width (4.8 GB bf16) through ``apply_moe_ep`` under
+     the serving and the train layouts, each output held to
+     ``apply_moe_local`` by ``kernels/compare.py``'s rule; 12c:
+     full-width starcoder2-3b ``prefill`` + 4 ``decode_step``s under the
+     serving layout, logits within LOGIT_ATOL of the unsharded run's with
+     the same top-1.  A failed rank fails the script.  These paths run no
+     CUDA kernel of the port (the reference's sharded steps reach no
+     Pallas kernel either).  Then the whole run's seconds.
 
-Every number of phases 4 to 11, tokens and traces included, also goes to
+Every number of phases 4 to 12, tokens and traces included, also goes to
 ``build/chip_smoke.json``.  Then one JSON line of kernel results
 (each kernel's launches from the path that runs it: decode and ragged
 prefill from phase 4's eager serve, beside them ``launches_d112`` and
@@ -2751,6 +2764,254 @@ def run_training(torch, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharding layer on NCCL ranks
+# ---------------------------------------------------------------------------
+
+#: 12a: phase 11a's run on the mesh, cut to 3 steps
+SHARD_TRAIN = ["--optimizer", "adamw", "--lr", "3e-4", "--batch", "4",
+               "--seq", "1024", "--steps", "3", "--log-every", "1"]
+SHARD_MOE_TOKENS = (4, 256)      # 12b: B, S into mixtral's MoE layer
+SHARD_PROMPT = (4, 256)          # 12c: B, S of the prompts
+SHARD_DECODE = 4                 # 12c: decode steps after the prefill
+
+
+def run_sharded(torch, first_step: dict, card: str) -> dict:
+    """Phase 12: one NCCL rank a visible card (``torch.cuda.device_count()``)
+    on the mesh (1, world) ("data", "model"), started with
+    ``torch.multiprocessing.spawn``; a failed rank fails the script.  The
+    ranks run 12a-12c (``sharded_rank``); rank 0 writes the results to
+    ``build/phase12.json``, which this process reads and prints."""
+    import socket
+    import torch.multiprocessing as mp
+    free_card(torch)
+    world = torch.cuda.device_count()
+    path = ROOT / "build" / "phase12.json"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    f32 = {"float32": first_step["float32"],
+           "planted_fault": {k: first_step["planted_fault"][k]
+                             for k in ("loss", "grad_norm", "skipped_layer")}}
+    t0 = time.perf_counter()
+    mp.spawn(sharded_rank, args=(world, port, f32, str(path), card),
+             nprocs=world, join=True)
+    out = json.loads(path.read_text())
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"sharded [{card}]: world {world}, mesh {out['mesh']}, "
+          f"{out['wall_s']:.1f} s with the ranks' start", flush=True)
+    return out
+
+
+def sharded_rank(rank: int, world: int, port: int, f32: dict, path: str,
+                 card: str) -> None:
+    """One rank of phase 12: its card, the NCCL process group, the mesh
+    (1, world); then 12a ``sharded_train``, 12b ``sharded_moe`` and 12c
+    ``sharded_serve``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank))
+    try:
+        from repro_torch.launch import mesh as mesh_lib
+        mesh = mesh_lib.make_mesh((1, world), ("data", "model"), "cuda")
+        lead = rank == 0
+        out = {"world": world, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                 tuple(mesh.shape)))}
+        if lead:
+            print(f"sharded: world {world}, mesh {out['mesh']}, NCCL "
+                  f"{'.'.join(map(str, torch.cuda.nccl.version()))}",
+                  flush=True)
+        out["train"] = sharded_train(torch, f"1x{world}", f32, card, lead)
+        out["moe"] = sharded_moe(torch, mesh, card, lead)
+        out["serve"] = sharded_serve(torch, mesh, card, lead)
+        if lead:
+            Path(path).write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_train(torch, mesh_arg: str, f32: dict, card: str,
+                  lead: bool) -> dict:
+    """12a: ``launch.train.main --mesh 1x<world> --no-smoke`` on
+    starcoder2-3b at phase 11a's batch (B 4, S 1024, AdamW) for 3 steps;
+    its first step (bf16, remat) held to phase 11's float32 copy of the
+    same weights and batch under phase 11's limits (``check_first_step``);
+    every loss and norm finite.  Seconds a step and peak
+    ``memory_allocated``."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_launch
+    cfg = configs.get_config("starcoder2-3b")
+    torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    t0 = time.perf_counter()
+    rc = train_launch.main(["--arch", "starcoder2-3b", "--no-smoke",
+                            "--device", "cuda", "--mesh", mesh_arg,
+                            *SHARD_TRAIN, "--seed", str(SEED)], out=rec)
+    hist = rec["metrics"]
+    out = {"rc": rc, "wall_s": time.perf_counter() - t0,
+           "memory_allocated_peak_bytes": torch.cuda.max_memory_allocated(),
+           "losses": [m["loss"] for m in hist],
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "step_s": rec["step_s"],
+           "step_s_median": statistics.median(rec["step_s"][1:]),
+           "param_placements": sorted({str(p.placements) for p in
+                                       _leaves(rec["params"])})}
+    if rc != 0 or len(hist) != int(SHARD_TRAIN[SHARD_TRAIN.index(
+            "--steps") + 1]):
+        fail(f"sharded train: the launcher returned {rc}")
+    out["first_step"] = check_first_step(cfg, hist[0], f32)
+    if not all(np.isfinite(out["losses"] + out["grad_norms"])):
+        fail(f"sharded train: non-finite loss or gradient norm: {out}")
+    del rec
+    free_card(torch)
+    if lead:
+        print(f"sharded train {cfg.name} [{card}]: {json.dumps(out)}",
+              flush=True)
+    return out
+
+
+def sharded_moe(torch, mesh, card: str, lead: bool) -> dict:
+    """12b: mixtral-8x22b's MoE layer alone at full width (8 experts of
+    d_ff 16384 over d_model 6144, bf16), SHARD_MOE_TOKENS tokens, through
+    ``apply_moe_ep`` under the serving layout (``make_policy(mesh,
+    fsdp=False)``, ``serving=True``: the token-replicated path) and the
+    train layout (``make_policy(mesh)``); each output held to
+    ``apply_moe_local`` on the same inputs by ``kernels/compare.py``'s
+    rule, the aux loss and drop fraction printed beside the local ones."""
+    from repro_torch import configs
+    from repro_torch.kernels.compare import compare
+    from repro_torch.models import moe
+    from repro_torch.sharding import context as shctx, policy as policy_lib
+    cfg = configs.get_config("mixtral-8x22b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    params = moe.init_moe(gen, cfg, torch.bfloat16, "cuda")
+    B, S = SHARD_MOE_TOKENS
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    with torch.no_grad():
+        want, aux_want = moe.apply_moe_local(params, x, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moe.apply_moe_local(params, x, cfg)
+        torch.cuda.synchronize()
+        local_ms = 1e3 * (time.perf_counter() - t0)
+    out = {"tokens": [B, S], "weight_bytes": sum(
+        t.numel() * t.element_size() for t in _leaves(params)),
+        "local_ms": local_ms}
+    for layout in ("serving", "train"):
+        policy = (dataclasses.replace(
+            policy_lib.make_policy(mesh, fsdp=False), serving=True)
+            if layout == "serving" else policy_lib.make_policy(mesh))
+        dp = policy.distribute({"moe": params}, policy.param_shardings(
+            {"moe": params}))["moe"]
+        with torch.no_grad(), shctx.use_policy(policy):
+            dx = policy.distribute_one(x, policy.spec(
+                x.shape, ("batch", None, None)))
+            got, aux = moe.apply_moe(dp, dx, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            moe.apply_moe(dp, dx, cfg)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        err, share = compare(got.full_tensor(), want)
+        out[layout] = {
+            "ms": ms, "max_abs_err": err, "limit_share": share,
+            "token_replicated": layout == "serving"
+            and B * S * cfg.experts_per_token <= 32768,
+            "moe_aux_loss": float(aux["moe_aux_loss"].full_tensor()),
+            "moe_aux_loss_local": float(aux_want["moe_aux_loss"]),
+            "moe_drop_frac": float(aux["moe_drop_frac"].full_tensor()),
+            "moe_drop_frac_local": float(aux_want["moe_drop_frac"])}
+        if share > 1.0:
+            fail(f"sharded moe ({layout}): apply_moe_ep vs apply_moe_local: "
+                 f"{out[layout]}")
+        del dp, got
+    del params, want
+    free_card(torch)
+    if lead:
+        print(f"sharded moe {cfg.name} [{card}]: {json.dumps(out)}",
+              flush=True)
+    return out
+
+
+def sharded_serve(torch, mesh, card: str, lead: bool) -> dict:
+    """12c: full-width starcoder2-3b ``prefill`` of SHARD_PROMPT prompts
+    and SHARD_DECODE ``decode_step``s under the serving layout
+    (``make_policy(mesh, fsdp=False)``, ``serving=True``), both runs fed
+    the unsharded run's greedy tokens; every step's logits within
+    LOGIT_ATOL of the unsharded run's with the same top-1."""
+    from repro_torch import configs
+    from repro_torch.models import model as model_lib
+    from repro_torch.sharding import context as shctx, policy as policy_lib
+    cfg = configs.get_config("starcoder2-3b")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    B, S = SHARD_PROMPT
+    rng = np.random.default_rng(SEED + 12)
+    tokens = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, size=(B, S)).astype(np.int32)).to("cuda")
+    max_len = S + SHARD_DECODE
+
+    def run(p, toks, full, feed):
+        """Logits and seconds of the prefill and each decode step; with
+        ``feed`` empty the steps take their own greedy tokens into it."""
+        greedy = not feed
+        times, logits = [], []
+        t0 = time.perf_counter()
+        cache, last = model_lib.prefill(p, cfg, toks, max_len)
+        logits.append(full(last))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        for i in range(SHARD_DECODE):
+            if greedy:
+                feed.append(torch.argmax(logits[-1], -1).to(
+                    torch.int32)[:, None])
+            t0 = time.perf_counter()
+            logits.append(full(model_lib.decode_step(p, cfg, cache,
+                                                     feed[i])[1]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return logits, times
+
+    feed = []
+    run(params, tokens, lambda t: t, feed)          # warm, and the tokens
+    want, want_s = run(params, tokens, lambda t: t, feed)
+    policy = dataclasses.replace(policy_lib.make_policy(mesh, fsdp=False),
+                                 serving=True)
+    dp = policy.distribute(params, policy.param_shardings(params))
+    with shctx.use_policy(policy):
+        dtok = policy.distribute_one(tokens, policy.spec(tokens.shape,
+                                                         ("batch", None)))
+        got, got_s = run(dp, dtok, lambda t: t.full_tensor(), feed)
+        first_s = got_s
+        got, got_s = run(dp, dtok, lambda t: t.full_tensor(), feed)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    top1 = [float((g.argmax(-1) == w.argmax(-1)).float().mean())
+            for g, w in zip(got, want)]
+    out = {"prompts": [B, S], "decode_steps": SHARD_DECODE,
+           "logits_max_abs_err": errs, "top1_agree": top1,
+           "logits_scale": float(want[0].abs().max()),
+           "prefill_s": got_s[0], "prefill_s_unsharded": want_s[0],
+           "first_run_s": sum(first_s),
+           "decode_s": got_s[1:], "decode_s_unsharded": want_s[1:]}
+    if not all(torch.isfinite(g).all() for g in got):
+        fail(f"sharded serve: non-finite logits: {out}")
+    if max(errs) > LOGIT_ATOL or min(top1) < 1.0:
+        fail(f"sharded serve: sharded vs unsharded logits: {out}")
+    del params, dp
+    free_card(torch)
+    if lead:
+        print(f"sharded serve {cfg.name} [{card}]: {json.dumps(out)}",
+              flush=True)
+    return out
+
+
 #: per-request and per-iteration lists, kept out of the printed lines (the
 #: whole record goes to build/chip_smoke.json)
 LONG_FIELDS = ("tokens", "completion_order", "budget_trace",
@@ -2875,6 +3136,11 @@ def main() -> int:
 
     # -- phase 11: training and the launchers
     record["training"] = run_training(torch, card)
+    save_record(record)
+
+    # -- phase 12: the sharding layer on NCCL ranks
+    record["sharded"] = run_sharded(
+        torch, record["training"]["starcoder2-3b"]["first_step"], card)
     record["run_s"] = time.perf_counter() - started
     save_record(record)
     print(f"chip_smoke: {record['run_s']:.1f} s", flush=True)

@@ -29,7 +29,13 @@ What is ported:
   * training (``repro_torch.training``: ``model.lm_loss``, AdamW and
     Adafactor, the train step, the synthetic data, checkpoints in the
     reference's format) and the launchers ``launch.train`` and
-    ``launch.serve``, on one device (sharding is not ported).
+    ``launch.serve``;
+  * the sharding layer (``repro_torch.sharding``: the reference's
+    logical-axis policy on a ``torch.distributed`` ``DeviceMesh``, DTensor
+    parameters, caches and optimizer state, the expert-parallel MoE path)
+    under ``launch.train --mesh`` and model-level ``prefill`` /
+    ``decode_step``; as in the reference, the serving engine runs
+    unsharded.
 
 The paged rows' two attention kernels are hand-written CUDA for Hopper
 (``csrc/*.cu``), like the four other kernels of the reference; see

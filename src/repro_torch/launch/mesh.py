@@ -1,18 +1,50 @@
-"""Device groups for serving replicas (port of ``repro.launch.mesh``).
+"""Meshes and device groups (port of ``repro.launch.mesh``).
 
-Only ``replica_groups`` is ported: it maps R serving replicas onto the
-visible CUDA cards.  The reference's ``make_production_mesh`` and
-``make_mesh`` build ``jax.make_mesh`` meshes for sharded training and
-serving; their counterpart is a ``torch.distributed`` ``DeviceMesh``,
-which comes with training, sharding and launch (ROADMAP Queue 1
-item 10).
+``make_mesh`` and ``make_production_mesh`` build the ``torch.distributed``
+``DeviceMesh`` a ``sharding.policy.ShardingPolicy`` lays tensors out on
+(one rank a device; the process group comes first, e.g. from ``torchrun``);
+``replica_groups`` maps R serving replicas onto the visible CUDA cards.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
+
+from .. import resolve_device
+
+
+def make_mesh(shape, axes, device=None):
+    """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over the first
+    prod(shape) ranks of the initialised process group, one rank a device
+    of ``device``'s type (``None`` means the card).  Raises, naming the
+    ranks needed, when the world is smaller."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh {shape} needs {len(shape)} axis names, "
+                         f"got {axes}")
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have < need:
+        raise RuntimeError(
+            f"mesh {shape} needs {need} ranks, have {have} — start one "
+            f"process a device, e.g. torchrun --nproc-per-node {need}")
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh(resolve_device(device).type,
+                      torch.arange(need).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The reference's production meshes: (16, 16) over ("data",
+    "model"), or (2, 16, 16) over ("pod", "data", "model") — 256 or 512
+    ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
 
 
 def replica_groups(R: int, devices: Optional[Sequence] = None

@@ -15,6 +15,16 @@ against the JAX engine's:
   * ``gated_rms_norm`` takes the gate's SiLU in float32 and casts it to
     x's dtype before the product;
   * ``embed`` multiplies by sqrt(D) in the parameter dtype.
+
+Under a sharding policy (``repro_torch.sharding``) the tensors are
+DTensors and the reference's constraint sites redistribute them: the
+query layout of ``attention_qkv`` (``policy.attn_q_axes``), K/V by kv
+heads, and the expanded K/V of the attention paths by heads.  The
+attention cores then run on each rank's shards (``_on_shards``), as they
+need no communication; decode against a sequence-sharded cache (kv heads
+that do not divide "model") closes its softmax over the sequence shards
+with three small all-reduces, where GSPMD reduces the reference's
+``kv_seq`` score row.
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ import torch.nn.functional as F
 # the model's RMSNorm is the RMSNorm kernel's plain version (one
 # implementation; the reference keeps two identical ones)
 from ..kernels.ref import rms_norm_ref as rms_norm  # noqa: F401
+from ..sharding import context as shctx
+from ..sharding import local as shlocal
 
 NEG_INF = -1e30
 
@@ -53,7 +65,8 @@ def dense_init(generator: torch.Generator, shape, dtype, device,
                scale: float = 0.02) -> torch.Tensor:
     """``scale`` times standard normal float32 draws, cast to ``dtype``."""
     shape = tuple(shape)
-    if 4 * torch.Size(shape).numel() <= _INIT_SLICE_BYTES:
+    if (4 * torch.Size(shape).numel() <= _INIT_SLICE_BYTES
+            or torch.device(device).type == "meta"):
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
         return (w * scale).to(dtype)
@@ -119,6 +132,36 @@ def _window_mask(q_positions, kv_positions, causal: bool,
     return mask
 
 
+def _on_shards(core, q, k, v, q_axes, q_positions, **kw):
+    """``core`` (an attention path) on this rank's shards of DTensors q,
+    k, v: q laid out by ``q_axes`` (batch, then heads or sequence), K/V by
+    batch and kv heads, expanded here to the query heads the rank holds
+    (the reference's ``("batch", None, "heads", None)`` constraint of the
+    expanded K/V, taken locally); ``q_positions`` cut to the rank's query
+    rows.  K/V gradients are partial over the mesh axes that split the
+    queries but not K/V.  Returns the output laid out as q."""
+    from torch.distributed.tensor import Partial
+    policy = shctx.current()
+    H = q.shape[2]
+    G = H // k.shape[2]
+    q = policy.constrain(q, q_axes)
+    kv_axes = ("batch", None, "kv_heads", None)
+    k, v = policy.constrain(k, kv_axes), policy.constrain(v, kv_axes)
+    grads = [pk if pk.is_shard() else Partial() if pq.is_shard() else pk
+             for pk, pq in zip(k.placements, q.placements)]
+    h0, hn = shlocal.local_range(q, 2)
+    g0 = shlocal.local_range(k, 2)[0] * G
+    s0, sn = shlocal.local_range(q, 1)
+
+    def heads(t):
+        t = t.to_local(grad_placements=grads)
+        t = expand_kv(t, t.shape[2] * G)
+        return t[:, :, h0 - g0:h0 - g0 + hn]
+    out = core(q.to_local(), heads(k), heads(v),
+               q_positions=q_positions[s0:s0 + sn], **kw)
+    return shlocal.wrap(out, q)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_positions: torch.Tensor, kv_positions: torch.Tensor,
                       causal: bool = True, window: Optional[int] = None,
@@ -128,7 +171,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     GQA H = KV * G; q_positions (Sq,), kv_positions (Sk,); ``window``
     keeps only keys with ``q_pos - k_pos < window``.  Query blocks are
     independent, so the reference's query chunking is not repeated.
-    Returns (B, Sq, H, D) in q's dtype."""
+    Returns (B, Sq, H, D) in q's dtype.  Under a policy q keeps its layout
+    (``attn_q_axes``: a sequence-sharded q is never chunked over, the
+    reference's transformer.py:154) and each rank attends its shards."""
+    policy = shctx.current()
+    if policy is not None and shlocal.is_dtensor(q):
+        return _on_shards(chunked_attention, q, k, v,
+                          policy.attn_q_axes(q.shape[1], q.shape[2]),
+                          q_positions, kv_positions=kv_positions,
+                          causal=causal, window=window, kv_chunk=kv_chunk)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     scale = 1.0 / (D ** 0.5)
@@ -216,7 +267,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``q_position``/``valid_len`` and (Smax,) ``kv_positions``; per-slot
     form: (B,) positions and lengths and (B, Smax) ``kv_positions``.
     ``window`` keeps only keys with ``q_pos - k_pos < window``.
+
+    Under a policy the cache is a DTensor and each rank attends its
+    shards: by kv heads where they divide "model", else by sequence
+    (``_decode_seq_sharded``).
     """
+    policy = shctx.current()
+    if policy is not None and shlocal.is_dtensor(k_cache):
+        return _decode_on_shards(policy, q, k_cache, v_cache,
+                                 q_position=q_position,
+                                 kv_positions=kv_positions,
+                                 valid_len=valid_len, window=window)
     B, _, H, D = q.shape
     Sm, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -243,6 +304,79 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def _decode_on_shards(policy, q, k_cache, v_cache, *, q_position,
+                      kv_positions, valid_len, window):
+    """``decode_attention`` on this rank's shards of a DTensor cache laid
+    out by ``policy.cache_shardings``."""
+    KV = k_cache.shape[2]
+    per_row = torch.as_tensor(q_position).ndim > 0
+    b0, bn = shlocal.local_range(k_cache, 0)
+
+    def rows(t):
+        t = torch.as_tensor(t)
+        return t[b0:b0 + bn] if per_row else t
+
+    kv_split = policy.resolve(KV, "kv_heads") is not None
+    # the cache is stored sequence-sharded where kv heads don't divide the
+    # model axis: the query row is then replicated over "model" and the
+    # score row stays split by sequence (the reference's "kv_seq")
+    q = policy.constrain(q, ("batch", None, "heads" if kv_split else None,
+                             None))
+    if kv_split or not shlocal.shard_axes(k_cache, 1):
+        out = decode_attention(q.to_local(), k_cache.to_local(),
+                               v_cache.to_local(),
+                               q_position=rows(q_position),
+                               kv_positions=rows(kv_positions),
+                               valid_len=rows(valid_len), window=window)
+    else:
+        out = _decode_seq_sharded(q.to_local(), k_cache, v_cache,
+                                  q_position=rows(q_position),
+                                  kv_positions=rows(kv_positions),
+                                  valid_len=rows(valid_len), window=window)
+    return shlocal.wrap(out, q)
+
+
+def _decode_seq_sharded(q, k_cache, v_cache, *, q_position, kv_positions,
+                        valid_len, window):
+    """One query a row against this rank's sequence slice of the cache:
+    local scores, then the softmax's max and sum and the P·V product
+    closed over the sequence shards (``all_reduce`` on the mesh axes that
+    split the cache's sequence dim), with the reference's order of
+    operations: p = exp(s - max) / sum, cast to the value dtype, then
+    P·V."""
+    B, _, H, D = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    s0, sn = shlocal.local_range(k_cache, 1)
+    mesh, axes = k_cache.device_mesh, shlocal.shard_axes(k_cache, 1)
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    scale = 1.0 / (D ** 0.5)
+    qr = q.reshape(B, KV, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qr, kl.float()) * scale
+    idx = torch.arange(s0, s0 + sn, device=q.device)
+    q_pos = torch.as_tensor(q_position, device=q.device)
+    valid_len = torch.as_tensor(valid_len, device=q.device)
+    kv_pos = kv_positions[..., s0:s0 + sn]
+    if q_pos.ndim:
+        mask = ((idx[None, :] < valid_len[:, None])
+                & (kv_pos <= q_pos[:, None]))
+        if window is not None:
+            mask &= (q_pos[:, None] - kv_pos) < window
+        s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    else:
+        mask = (idx < valid_len) & (kv_pos <= q_pos)
+        if window is not None:
+            mask &= (q_pos - kv_pos) < window
+        s = torch.where(mask[None, None, None, :], s, NEG_INF)
+    m = shlocal.all_reduce(s.amax(dim=-1, keepdim=True), mesh, axes, "max")
+    e = torch.exp(s - m)
+    p = e / shlocal.all_reduce(e.sum(dim=-1, keepdim=True), mesh, axes)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(vl.dtype).float(),
+                       vl.float())
+    out = shlocal.all_reduce(out, mesh, axes)
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention block (projections)
 # ---------------------------------------------------------------------------
@@ -263,6 +397,11 @@ def attention_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    policy = shctx.current()
+    if policy is not None:
+        q = policy.constrain(q, policy.attn_q_axes(q.shape[1], q.shape[2]))
+    k = shctx.constrain(k, ("batch", None, "kv_heads", None))
+    v = shctx.constrain(v, ("batch", None, "kv_heads", None))
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     return q, k, v
@@ -307,11 +446,36 @@ def init_embedding(generator, cfg, dtype, device) -> dict:
 
 
 def embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    x = params["embedding"][tokens.long()]
+    table = params["embedding"]
+    if shlocal.is_dtensor(table):
+        x = _embed_on_shards(shctx.current(), table, tokens)
+    else:
+        x = F.embedding(tokens.long(), table)
     # sqrt(D) rounded to the parameter dtype first, as the reference's
     # ``jnp.asarray(sqrt(D), x.dtype)``; kept a host scalar (no copy)
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
     return x * scale
+
+
+def _embed_on_shards(policy, table, tokens):
+    """The lookup of a DTensor table (vocab rows split over "model") on
+    this rank's shards: each rank gathers the rows it holds, zeros the
+    others, and one sum over the vocab axes completes every row (exact:
+    one term is non-zero).  The result is laid out by the tokens' batch
+    and replicated otherwise."""
+    from torch.distributed.tensor import Partial, Replicate
+    tok = policy.constrain(tokens, ("batch", None))
+    v0, vn = shlocal.local_range(table, 0)
+    local = tok.to_local().long() - v0
+    inside = (local >= 0) & (local < vn)
+    rows = table.to_local(grad_placements=[
+        p if p.is_shard() else Partial() if pt.is_shard() else p
+        for p, pt in zip(table.placements, tok.placements)])
+    x = F.embedding(local.clamp(0, vn - 1), rows)
+    x = shlocal.all_reduce(x * inside[..., None].to(x.dtype),
+                           table.device_mesh, shlocal.shard_axes(table, 0))
+    return shlocal.wrap(x, tok, [p if p.is_shard() else Replicate()
+                                 for p in tok.placements])
 
 
 def logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:

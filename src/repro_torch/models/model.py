@@ -36,6 +36,14 @@ CUDA graphs (both decode windows, both stall admissions,
 ``prefill_chunks``) read no device value on the host: slot indices may be
 1-element device tensors.  ``lm_loss`` runs with autograd; the serving
 functions run under ``torch.no_grad``.
+
+Under a sharding policy (``sharding.context.use_policy``) the parameters
+are DTensors laid out by ``policy.param_shardings`` and the reference's
+constraint sites redistribute the activations; ``prefill`` lays its new
+cache out by ``policy.cache_shardings``, and the outputs are DTensors
+(``full_tensor()`` gathers them).  The reference activates a policy in
+``launch.train --mesh`` and in its dry runs only; so does the port: the
+serving engine never does.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding import context as shctx
+from ..sharding import local as shlocal
 from . import layers, multimodal, transformer
 
 
@@ -83,6 +93,14 @@ def init_params(cfg, generator: torch.Generator, device,
     return params
 
 
+def _gathered(params: dict, key: str):
+    """``params[key]`` with its "fsdp" dims gathered under a policy."""
+    policy = shctx.current()
+    if policy is None:
+        return params[key]
+    return policy.gather_fsdp(params[key], (key,))
+
+
 def _final_logits(params, cfg, x):
     x = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
     return layers.logits(params["embed"], x, cfg).float()
@@ -94,6 +112,10 @@ def _final_logits(params, cfg, x):
 
 
 def _encoder_layer(p, x, positions, cfg):
+    x = shctx.constrain(x, ("batch", "seq", None))
+    policy = shctx.current()
+    if policy is not None:
+        p = policy.gather_fsdp(p, ("encoder", "blocks"))
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = layers.attention_qkv(p["attn"], h, positions, cfg.rope_theta)
     attn = layers.chunked_attention(q, k, v, q_positions=positions,
@@ -109,12 +131,14 @@ def encode(params: dict, cfg, frames: torch.Tensor, *,
     (B, Te, D): projected, then every encoder layer with bidirectional
     attention (rope over ``arange(Te)``), then the final norm.  ``remat``
     recomputes each layer in the backward pass."""
-    x = multimodal.apply_projector(params["frontend_proj"], frames)
+    x = multimodal.apply_projector(_gathered(params, "frontend_proj"),
+                                   frames)
+    x = shctx.constrain(x, ("batch", None, None))
     positions = torch.arange(x.shape[1], device=x.device)
     for p in params["encoder"]["blocks"]:
         if remat:
-            x = checkpoint(_encoder_layer, p, x, positions, cfg,
-                           use_reentrant=False)
+            x = checkpoint(shctx.under_current(_encoder_layer), p, x,
+                           positions, cfg, use_reentrant=False)
         else:
             x = _encoder_layer(p, x, positions, cfg)
     return layers.rms_norm(x, params["encoder"]["final_ln"], cfg.norm_eps)
@@ -132,10 +156,11 @@ def _decoder_inputs(params: dict, cfg, tokens: torch.Tensor,
     if cfg.frontend == "vision":
         if patches is None:
             raise ValueError(f"{cfg.name}: a vision config takes patches=")
-        pe = multimodal.apply_projector(params["frontend_proj"],
+        pe = multimodal.apply_projector(_gathered(params, "frontend_proj"),
                                         patches).to(x.dtype)
         x = torch.cat([pe, x], dim=1)
         num_prefix = pe.shape[1]
+    x = shctx.constrain(x, ("batch", None, None))
     ctx = {"positions": torch.arange(x.shape[1], device=x.device),
            "enc_out": None}
     if cfg.family == "encdec":
@@ -162,14 +187,34 @@ def chunked_xent(params: dict, cfg, x: torch.Tensor, labels: torch.Tensor,
     count = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, S, chunk):
         lc = labels[:, lo:lo + chunk].long()
-        logits = layers.logits(params["embed"], x[:, lo:lo + chunk],
-                               cfg).float()
+        logits = layers.logits(params["embed"], x[:, lo:lo + chunk], cfg)
+        logits = shctx.constrain(logits, ("batch", None, "vocab")).float()
         logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+        ll = _label_logits(logits, lc.clamp(min=0))
         mask = (lc >= 0).float()
         nll_sum = nll_sum + ((logz - ll) * mask).sum()
         count = count + mask.sum()
     return nll_sum, count
+
+
+def _label_logits(logits, labels):
+    """logits (B, c, V) at labels (B, c).  For logits split by vocab under
+    a policy, on each rank's shards: the rank whose vocab slice holds a
+    label gathers it, the others give zero, and one sum over the vocab
+    axes completes it."""
+    if not (shlocal.is_dtensor(logits) and shlocal.shard_axes(logits, 2)):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Replicate
+    lab = shctx.current().constrain(labels, ("batch", None))
+    v0, vn = shlocal.local_range(logits, 2)
+    local = lab.to_local() - v0
+    inside = (local >= 0) & (local < vn)
+    ll = torch.gather(logits.to_local(), -1,
+                      local.clamp(0, vn - 1)[..., None])[..., 0]
+    ll = shlocal.all_reduce(ll * inside, logits.device_mesh,
+                            shlocal.shard_axes(logits, 2))
+    return shlocal.wrap(ll, lab, [p if p.is_shard() else Replicate()
+                                  for p in lab.placements])
 
 
 def lm_loss(params: dict, cfg, batch: dict, *, remat: bool = False):
@@ -188,6 +233,9 @@ def lm_loss(params: dict, cfg, batch: dict, *, remat: bool = False):
     x = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
     if num_prefix:
         x = x[:, num_prefix:]
+    # gather the (possibly sequence-sharded) final hiddens before the
+    # loss's sequence chunks
+    x = shctx.constrain(x, ("batch", None, None))
     nll_sum, count = chunked_xent(params, cfg, x, batch["labels"])
     xent = nll_sum / torch.clamp(count, min=1.0)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -219,6 +267,10 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, max_len: int,
     B, S = x.shape[0], x.shape[1]
     cache = transformer.init_cache(cfg, B, max_len, cache_dtype,
                                    tokens.device)
+    policy = shctx.current()
+    if policy is not None:
+        cache["layers"] = policy.distribute(
+            cache["layers"], policy.cache_shardings(cache["layers"]))
     x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
                                    "prefill")
     last_logits = _final_logits(params, cfg, x[:, -1:])[:, 0]
@@ -237,7 +289,8 @@ def decode_step(params: dict, cfg, cache: dict, token: torch.Tensor):
     (``transformer.init_slot_cache``: ``pos`` (B,)).  token (B, 1) i32.
     Updates ``cache`` in place; returns (next_token (B, 1) i32, logits
     (B, V) f32)."""
-    x = layers.embed(params["embed"], token, cfg)
+    x = shctx.constrain(layers.embed(params["embed"], token, cfg),
+                        ("batch", None, None))
     transformer.decode_slot_pos(cache["slot_pos"], cache["pos"])
     ctx = {"pos": cache["pos"], "slot_pos": cache["slot_pos"]}
     x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
@@ -299,7 +352,8 @@ def decode_step_paged(params: dict, cfg, cache: dict, token: torch.Tensor,
     """One greedy step of every slot against the paged pool (tables
     (B, nb) i32).  Scatters each slot's K/V and advances ``pos`` in place;
     returns (next_token (B, 1) i32, logits (B, V) f32)."""
-    x = layers.embed(params["embed"], token, cfg)
+    x = shctx.constrain(layers.embed(params["embed"], token, cfg),
+                        ("batch", None, None))
     ctx = {"pos": cache["pos"], "tables": tables, "use_kernels": use_kernels}
     x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
                                    "decode_paged")
@@ -349,7 +403,8 @@ def prefill_chunks(params: dict, cfg, cache: dict, tokens: torch.Tensor,
     local = torch.arange(TT, dtype=torch.int32, device=dev) - q_off[token_chunk]
     positions = ctx_lens[token_chunk] + local
     valid = local < lens[token_chunk]
-    x = layers.embed(params["embed"], tokens, cfg)
+    x = shctx.constrain(layers.embed(params["embed"], tokens, cfg),
+                        ("batch", None, None))
     ctx = {"positions": positions, "token_chunk": token_chunk,
            "local": local, "valid": valid, "meta": meta,
            "table_rows": tables.to(torch.int32), "chunk_pad": chunk_pad,
@@ -388,7 +443,8 @@ def prefill_chunk(params: dict, cfg, cache: dict, tokens: torch.Tensor,
     dev = tokens.device
     positions = (torch.as_tensor(ctx_len, dtype=torch.int32, device=dev)
                  + torch.arange(T, dtype=torch.int32, device=dev))
-    x = layers.embed(params["embed"], tokens, cfg)
+    x = shctx.constrain(layers.embed(params["embed"], tokens, cfg),
+                        ("batch", None, None))
     x, _ = transformer.prefill_chunk_paged(params["layers"], x, positions,
                                            table_row.to(torch.int32), cfg,
                                            cache, use_kernels)

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..sharding import local as shlocal
 from . import layers
 from .ssm import causal_conv, conv_step, softplus
 
@@ -114,9 +115,9 @@ def decode_recurrent_block(params: dict, x: torch.Tensor, cfg,
     gate = _gelu_gate(x0, params["w_gate_branch"])
     conv, xp = conv_step(state["conv"], branch, params["conv_w"],
                          params["conv_b"])
-    state["conv"].copy_(xp[:, 1:])
+    shlocal.copy_into(state["conv"], xp[:, 1:])
     a, bterm = _rglru_coeffs(params, conv)
     h = state["h"] * a + bterm
-    state["h"].copy_(h)
+    shlocal.copy_into(state["h"], h)
     y = (h * gate).to(x.dtype)
     return (y @ params["w_out"])[:, None]

@@ -30,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..sharding import context as shctx
+from ..sharding import local as shlocal
 from . import layers
 
 
@@ -126,7 +128,10 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, B_: torch.Tensor,
     x (b, s, h, p), already multiplied by dt; a (b, s, h) = dt * A
     (negative, float32); B_, C_ (b, s, g, n), the h heads in g groups.
     Returns (y (b, s, h, p) in x's dtype, final state (b, h, p, n)
-    float32)."""
+    float32).  Under a policy each rank scans its shards
+    (``_ssd_on_shards``)."""
+    if shctx.current() is not None and shlocal.is_dtensor(x):
+        return _ssd_on_shards(x, a, B_, C_, chunk, init_state)
     b, s, h, p = x.shape
     g, n = B_.shape[2], B_.shape[3]
     rep = h // g
@@ -177,6 +182,39 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, B_: torch.Tensor,
     return y[:, :s].to(dt), carry
 
 
+def _ssd_on_shards(x, a, B_, C_, chunk: int, init_state):
+    """``ssd_chunked`` on this rank's shards: x and a laid out by batch
+    and heads, B_/C_ by batch (the rank takes the groups of its heads, or
+    its heads' rows of the expanded groups where a shard splits a group),
+    the scan local; B_/C_ gradients are partial over the axes that split
+    the heads."""
+    from torch.distributed.tensor import Partial, Shard
+    policy = shctx.current()
+    x = policy.constrain(x, ("batch", None, "heads", None))
+    a = policy.constrain(a, ("batch", None, "heads"))
+    grp = ("batch", None, None, None)
+    B_, C_ = policy.constrain(B_, grp), policy.constrain(C_, grp)
+    h, g = x.shape[2], B_.shape[2]
+    rep = h // g
+    h0, hn = shlocal.local_range(x, 2)
+    grads = [pb if pb.is_shard() else Partial() if px.is_shard() else pb
+             for pb, px in zip(B_.placements, x.placements)]
+
+    def groups(t):
+        t = t.to_local(grad_placements=grads)
+        if h0 % rep == 0 and hn % rep == 0:
+            return t[:, :, h0 // rep:(h0 + hn) // rep]
+        return t.repeat_interleave(rep, dim=2)[:, :, h0:h0 + hn]
+    state_pl = [Shard(1) if p.is_shard() and p.dim == 2 else p
+                for p in x.placements]
+    if init_state is not None:
+        init_state = policy.constrain(
+            init_state, ("batch", "heads", None, None)).to_local()
+    y, final = ssd_chunked(x.to_local(), a.to_local(), groups(B_),
+                           groups(C_), chunk, init_state)
+    return shlocal.wrap(y, x), shlocal.wrap(final, x, state_pl)
+
+
 def apply_mamba2(params: dict, x: torch.Tensor, cfg,
                  state: Optional[dict] = None):
     """The whole Mamba-2 mixer over a sequence, x (B, S, D).  ``state``:
@@ -191,6 +229,7 @@ def apply_mamba2(params: dict, x: torch.Tensor, cfg,
                                    None if state is None else state["conv"])
     xBC = F.silu(conv)
     xs = xBC[..., :di].reshape(B, S, nh, p)
+    xs = shctx.constrain(xs, ("batch", None, "heads", None))
     B_ = xBC[..., di:di + g * ns].reshape(B, S, g, ns)
     C_ = xBC[..., di + g * ns:].reshape(B, S, g, ns)
     dt = softplus(dt.float() + params["dt_bias"])
@@ -217,7 +256,7 @@ def decode_mamba2(params: dict, x: torch.Tensor, cfg, state: dict):
     z, xBC, dt = _split_proj(proj, cfg)
     conv, xp = conv_step(state["conv"], xBC, params["conv_w"],
                          params["conv_b"])
-    state["conv"].copy_(xp[:, 1:])
+    shlocal.copy_into(state["conv"], xp[:, 1:])
     xBC = F.silu(conv)
     xs = xBC[..., :di].reshape(B, nh, p)
     rep = nh // g
@@ -230,7 +269,7 @@ def decode_mamba2(params: dict, x: torch.Tensor, cfg, state: dict):
     decay = torch.exp(dt * A)
     dBx = (dt[..., None, None] * xs.float()[..., None]) * Bh[:, :, None, :]
     h_new = state["ssd"] * decay[..., None, None] + dBx       # (B,nh,p,ns)
-    state["ssd"].copy_(h_new)
+    shlocal.copy_into(state["ssd"], h_new)
     y = (h_new @ Ch[..., None])[..., 0]                       # (B, nh, p)
     y = y.to(xs.dtype) + xs * params["D"][None, :, None].to(xs.dtype)
     y = layers.gated_rms_norm(y.reshape(B, di), z, params["norm"],

@@ -43,6 +43,13 @@ other write, decode included, goes into the cache's own tensors, which
 is what the engine's CUDA graphs bind.  The recurrent, multimodal and
 encoder-decoder families have no paged cache (``paged_supported``).
 
+Under a sharding policy (``repro_torch.sharding``) the parameters and
+the contiguous caches are DTensors: each layer constrains its input as
+the reference's ``apply_block_*`` do (the residual stream by batch, and
+by sequence under ``seq_parallel`` in the sequence modes), and the
+in-place cache writes run on each rank's shards (DTensor has no rule
+for them).
+
 ``apply_stack(..., mode="train")`` is the training forward: no cache, no
 write into any tensor it was given, so autograd runs through it; with
 ``remat=True`` each layer runs under ``torch.utils.checkpoint``, the
@@ -62,6 +69,8 @@ from ..kernels import chunked_prefill_attention as cpa_kernel
 from ..kernels import paged_decode_attention as pfd_kernel
 from ..kernels import ragged_chunked_prefill as rcp_kernel
 from ..kvcache import paged as paged_lib
+from ..sharding import context as shctx
+from ..sharding import local as shlocal
 from . import layers, moe as moe_lib, rglru, ssm
 from .layers import rms_norm
 
@@ -218,23 +227,32 @@ def prefill_slot_pos(capacity: int, seq_len: int, device
 def prefill_write_kv(cache_k, cache_v, k, v) -> None:
     """Write a freshly prefilled sequence (positions 0..S-1) into the
     (B, W, KV, D) ring in place: rows 0..S-1 when it fits, else its last
-    W rows rolled by ``S % W`` (slot ``p % W`` holds position ``p``)."""
+    W rows rolled by ``S % W`` (slot ``p % W`` holds position ``p``).  A
+    DTensor ring is written on each rank's shard (its rows s0..s0+n)."""
     Wc = cache_k.shape[1]
     S = k.shape[1]
-    if S >= Wc:
-        shift = S % Wc
-        cache_k.copy_(torch.roll(k[:, S - Wc:], shift, dims=1))
-        cache_v.copy_(torch.roll(v[:, S - Wc:], shift, dims=1))
-    else:
-        cache_k[:, :S] = k.to(cache_k.dtype)
-        cache_v[:, :S] = v.to(cache_v.dtype)
+    s0, sn = shlocal.local_range(cache_k, 1)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        if shlocal.is_dtensor(cache):
+            new = shlocal.layout_like(new, cache, whole_dim=1).to_local()
+            cache = cache.to_local()
+        if S >= Wc:
+            cache.copy_(torch.roll(new[:, S - Wc:], S % Wc,
+                                   dims=1)[:, s0:s0 + sn])
+        else:
+            n = max(0, min(sn, S - s0))
+            cache[:, :n] = new[:, s0:s0 + n].to(cache.dtype)
 
 
 def decode_write_kv(cache_k, cache_v, k, v, pos) -> None:
     """Write one token (B, 1, KV, D) at ring slot ``pos % W`` in place.
     ``pos`` is the batch's shared scalar position, or (B,) per-slot
-    positions, each row then writing at its own ring slot."""
+    positions, each row then writing at its own ring slot.  A DTensor
+    ring is written on each rank's shard, where the slot lies in it."""
     idx = pos.long() % cache_k.shape[1]
+    if shlocal.is_dtensor(cache_k):
+        _decode_write_shards(cache_k, cache_v, k, v, idx)
+        return
     if idx.ndim:
         rows = torch.arange(cache_k.shape[0], device=idx.device)
         cache_k[rows, idx] = k[:, 0].to(cache_k.dtype)
@@ -242,6 +260,27 @@ def decode_write_kv(cache_k, cache_v, k, v, pos) -> None:
         return
     cache_k[:, idx] = k[:, 0].to(cache_k.dtype)
     cache_v[:, idx] = v[:, 0].to(cache_v.dtype)
+
+
+def _decode_write_shards(cache_k, cache_v, k, v, idx) -> None:
+    """``decode_write_kv`` on the local shards of a DTensor ring: the rank
+    whose sequence slice holds the slot writes it, the others keep their
+    rows (no host read of ``pos``)."""
+    b0, bn = shlocal.local_range(cache_k, 0)
+    s0, sn = shlocal.local_range(cache_k, 1)
+    li = idx - s0
+    inside = (li >= 0) & (li < sn)
+    li = li.clamp(0, sn - 1)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        new = shlocal.layout_like(new, cache, whole_dim=1).to_local()
+        cache = cache.to_local()
+        new = new[:, 0].to(cache.dtype)
+        if idx.ndim:
+            rows = torch.arange(bn, device=idx.device)
+            at, keep = li[b0:b0 + bn], inside[b0:b0 + bn, None, None]
+            cache[rows, at] = torch.where(keep, new, cache[rows, at])
+        else:
+            cache[:, li] = torch.where(inside, new, cache[:, li])
 
 
 def init_slot_cache(cfg, num_slots: int, max_len: int,
@@ -339,7 +378,7 @@ def _attn_seq(p, x, positions, cfg, window):
     """Full-sequence causal self attention (a prefill into a ring): the
     sliding-window scheme when ``window`` is shorter than the sequence,
     as the reference (transformer.py:149)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _gather_seq(rms_norm(x, p["ln1"], cfg.norm_eps))
     q, k, v = layers.attention_qkv(p["attn"], h, positions, cfg.rope_theta)
     if window is not None and window < x.shape[1]:
         attn = layers.windowed_attention(q, k, v, q_positions=positions,
@@ -549,9 +588,18 @@ def _recurrent_layer(kind, p, x, cfg, lc, mode):
     return x + y if kind == "ssm" else _mlp_part(p, x + y, cfg)
 
 
+def _gather_seq(h):
+    """A sequence-sharded (``seq_parallel``) block input gathered over the
+    sequence before the block's projections, Korthikanti-style: the
+    residual stream and norms stay sharded, the products see whole
+    sequences (a no-op in every other layout)."""
+    return shctx.constrain(h, ("batch", None, None))
+
+
 def _mlp_part(p, x, cfg):
-    return x + layers.apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                                cfg.mlp_act)
+    return x + layers.apply_mlp(
+        p["mlp"], _gather_seq(rms_norm(x, p["ln2"], cfg.norm_eps)),
+        cfg.mlp_act)
 
 
 def _moe_part(p, x, cfg):
@@ -567,7 +615,15 @@ def _moe_part(p, x, cfg):
 
 def _apply_layer(kind, p, x, ctx, cfg, lc, mode):
     """One layer of any kind in any mode.  Returns (x, aux): a MoE
-    layer's aux dict, None for the other kinds."""
+    layer's aux dict, None for the other kinds.  The input is constrained
+    as the reference's ``apply_block_*`` do: by batch, and in the sequence
+    modes by sequence too ("seq" resolves to "model" only under the
+    policy's ``seq_parallel``)."""
+    x = shctx.constrain(x, ("batch", "seq" if mode in ("prefill", "train")
+                            else None, None))
+    policy = shctx.current()
+    if policy is not None:
+        p = policy.gather_fsdp(p, ("layers",))
     if kind in ("ssm", "rec"):
         return _recurrent_layer(kind, p, x, cfg, lc, mode), None
     window = _layer_window(kind, cfg)
@@ -596,8 +652,8 @@ def _apply_layer(kind, p, x, ctx, cfg, lc, mode):
         else:
             enc_k, enc_v = _project_enc_kv(p, ctx["enc_out"])
             if lc is not None:
-                lc["enc_k"].copy_(enc_k)
-                lc["enc_v"].copy_(enc_v)
+                shlocal.copy_into(lc["enc_k"], enc_k)
+                shlocal.copy_into(lc["enc_v"], enc_v)
         x = _cross_attn(p, x, enc_k, enc_v, cfg)
     if kind == "moe":
         return _moe_part(p, x, cfg)
@@ -625,8 +681,8 @@ def apply_stack(stack: list, x: torch.Tensor, ctx: dict, cfg,
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), stack)):
         lc = cache["layers"][i] if cache is not None else None
         if remat and mode == "train":
-            x, a = checkpoint(_apply_layer, kind, p, x, ctx, cfg, lc, mode,
-                              use_reentrant=False)
+            x, a = checkpoint(shctx.under_current(_apply_layer), kind, p, x,
+                              ctx, cfg, lc, mode, use_reentrant=False)
         else:
             x, a = _apply_layer(kind, p, x, ctx, cfg, lc, mode)
         if a is not None:

@@ -7,6 +7,11 @@ bit patterns.  A checkpoint either package writes, the other reads:
 ``restore(path)`` with no ``like`` returns the stored tree as nested
 dicts of CPU tensors, which ``models.convert.params_from_numpy`` lays out
 as the port's parameters when the reference wrote it.
+
+A tree of DTensors (a sharded run) is saved in the same format: every
+rank gathers each leaf (``full_tensor()``, a collective, so every rank
+calls ``save``) and rank 0 writes the files, which an unsharded run
+restores.
 """
 
 from __future__ import annotations
@@ -18,7 +23,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..sharding import local as shlocal
 from ..tree import tree_map_with_path, tree_paths
 
 _KEY_SEP = "/"
@@ -43,8 +50,13 @@ def _to_numpy(leaf) -> tuple:
 
 def save(path: str, tree: Any, *, step: int = 0,
          shard_bytes: int = 1 << 30) -> None:
-    os.makedirs(path, exist_ok=True)
     flat = _flatten(tree)
+    if any(shlocal.is_dtensor(v) for v in flat.values()):
+        flat = {k: v.full_tensor() if shlocal.is_dtensor(v) else v
+                for k, v in flat.items()}
+        if dist.get_rank() != 0:
+            return
+    os.makedirs(path, exist_ok=True)
     manifest = {"step": step, "keys": {}}
     shard, shard_idx, shard_sz = {}, 0, 0
 

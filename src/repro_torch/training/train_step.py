@@ -1,11 +1,18 @@
 """The training step (PyTorch port of ``repro.training.train_step``):
-loss -> autograd backward -> global-norm clip -> optimizer update."""
+loss -> autograd backward -> global-norm clip -> optimizer update.
+
+It runs unchanged on DTensor parameters and optimizer state (a sharded
+run, ``launch.train --mesh``): each gradient is laid out as its parameter
+(the data-parallel sum: a reduce-scatter or all-reduce), the optimizer
+works on the local shards (``optimizer``), and the metrics come back as
+plain full values."""
 
 from __future__ import annotations
 
 import torch
 
 from ..models import model as model_lib
+from ..sharding import local as shlocal
 from ..tree import tree_map, tree_paths, tree_set
 from . import optimizer as opt_lib
 
@@ -25,7 +32,9 @@ def make_train_step(cfg, opt: opt_lib.Optimizer, *, remat: bool = True,
         loss, metrics = model_lib.lm_loss(params, cfg, batch, remat=remat)
         grads = torch.autograd.grad(loss, leaves)
         tree = tree_map(lambda p: None, params)
-        for (path, _), g in zip(paths, grads):
+        for (path, p), g in zip(paths, grads):
+            if shlocal.is_dtensor(g):
+                g = g.redistribute(p.device_mesh, p.placements)
             tree_set(tree, path, g)
         del grads, loss
         with torch.no_grad():
@@ -33,11 +42,15 @@ def make_train_step(cfg, opt: opt_lib.Optimizer, *, remat: bool = True,
             updates, opt_state = opt.update(tree, opt_state, params)
             del tree
             opt_lib.apply_updates(params, updates)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: _full(v.detach()) for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm
         return params, opt_state, metrics
 
     return train_step
+
+
+def _full(v):
+    return v.full_tensor() if shlocal.is_dtensor(v) else v
 
 
 def make_eval_step(cfg):
@@ -47,6 +60,6 @@ def make_eval_step(cfg):
     @torch.no_grad()
     def eval_step(params, batch):
         _, metrics = model_lib.lm_loss(params, cfg, batch, remat=False)
-        return metrics
+        return {k: _full(v) for k, v in metrics.items()}
 
     return eval_step

@@ -24,8 +24,9 @@ which share its helpers:
     the starcoder2-3b smoke model on ``SyntheticLMData``, the loss down
     by at least 0.5;
   * ``launch.train.main`` on the CPU prints its ``[train]`` lines and the
-    final JSON line, writes a checkpoint the port restores; ``--mesh``
-    raises naming ROADMAP item 10; ``launch.serve.main`` serves a few
+    final JSON line, writes a checkpoint the port restores; a ``--mesh``
+    larger than the world raises, naming the ranks it needs, before
+    anything is allocated; ``launch.serve.main`` serves a few
     requests on the CPU; both raise without a card unless given
     ``--device cpu``.
 """
@@ -261,8 +262,16 @@ def test_train_launcher_on_cpu(tmp_path, capsys):
 
 
 def test_train_launcher_refuses_a_mesh_and_needs_a_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # a mesh larger than the world (one process, no torchrun environment)
+    # is refused before anything is allocated
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    allocated = []
+    monkeypatch.setattr(tm, "init_params",
+                        lambda *a, **k: allocated.append(1))
+    with pytest.raises(RuntimeError, match="needs 8 ranks, have 1"):
         ttrain.main(["--arch", "yi-6b", "--mesh", "2x4", "--device", "cpu"])
+    assert not allocated
+    monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--arch", "yi-6b", "--steps", "1"])
