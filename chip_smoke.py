@@ -186,9 +186,25 @@ Phases, in order; any failure exits non-zero:
      serving layout, logits within LOGIT_ATOL of the unsharded run's with
      the same top-1.  A failed rank fails the script.  These paths run no
      CUDA kernel of the port (the reference's sharded steps reach no
-     Pallas kernel either).  Then the whole run's seconds.
+     Pallas kernel either);
+ 13. the dry run and the simulator.  13a: the dry run's shape-only step
+     (``launch.dryrun.dry_step``: fake tensors, ``op_cost`` and
+     ``MemTracker``) of 11a's step (starcoder2-3b whole, B 4, S 1024,
+     AdamW, remat) on a (1, 1) mesh of a fake world of one, then the same
+     step for real on the card inside ``op_cost``: flops and HBM bytes of
+     the two within 1 %, predicted resident bytes over the real step's
+     peak ``memory_allocated`` within 0.8-1.25, the roofline's
+     ``bound_s`` beside the measured seconds a step.  13b: ``python -m
+     repro_torch.launch.dryrun --arch mamba2-1.3b --shape decode_32k`` in
+     a subprocess on the host, mesh (16, 16) of a fake world of 256: it
+     must end ``ok`` with flops and resident bytes above 0; its roofline
+     and fit lines are printed; then starcoder2-3b x train_4k the same
+     way, which must also count an all-to-all.  13c: the port's ``simulate_continuous``
+     on phase 4's tasks (the engine's own ``u``, its settings): every
+     field of SCHEDULE_FIELDS equal to phase 4's eager serve.  Then the
+     phase's seconds and the whole run's.
 
-Every number of phases 4 to 12, tokens and traces included, also goes to
+Every number of phases 4 to 13, tokens and traces included, also goes to
 ``build/chip_smoke.json``.  Then one JSON line of kernel results
 (each kernel's launches from the path that runs it: decode and ragged
 prefill from phase 4's eager serve, beside them ``launches_d112`` and
@@ -224,10 +240,9 @@ MAX_NEW = 64
 DECODE_STEPS = 4
 N_REQUESTS = 32
 
-# H100 SXM peaks (NVIDIA data sheet): bf16 on the tensor cores, float32
-# outside them (elementwise work such as RMSNorm)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
+# H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet), for
+# elementwise work such as RMSNorm; the bf16 and HBM peaks are
+# ``repro_torch.launch.analysis``'s PEAK_FLOPS and HBM_BW
 FP32_FLOPS_PER_S = 67e12
 
 # the ops-path shapes beyond the serving path's
@@ -307,10 +322,12 @@ def time_in_turns(torch, fns: dict, reps: int = 20, warmup: int = 3,
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def bound(bytes_moved: float, flops: float,
-          flops_per_s: float = BF16_FLOPS_PER_S):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
+def bound(bytes_moved: float, flops: float, flops_per_s=None):
+    """(ms, what bounds it) at the H100's HBM rate and ``flops_per_s``
+    (default: its bf16 tensor-core peak)."""
+    from repro_torch.launch import analysis
+    t_bytes = bytes_moved / analysis.HBM_BW * 1e3
+    t_ops = flops / (flops_per_s or analysis.PEAK_FLOPS) * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1287,6 +1304,8 @@ def run_engine(torch, cfg, params, kmods, inputs) -> dict:
         out[mode]["reserved_growth_bytes"] = grown
         if mode == "graphed":
             out[mode]["graphs"] = graph_report("engine", eng, res)
+        else:
+            out[mode]["sim_inputs"] = sim_inputs(eng, res)
     for mode in ("graphed", "eager"):
         out[mode]["serve_profile"] = profiled_serve(
             torch, engine, requests, mode == "graphed")
@@ -1301,6 +1320,23 @@ def run_engine(torch, cfg, params, kmods, inputs) -> dict:
             fail(f"engine: kernel {name} was never launched on the main "
                  "path")
     return out
+
+
+def sim_inputs(eng, res) -> dict:
+    """What the simulator needs to replay a continuous serve: each task in
+    request order as the engine scheduled it (task id, its own ``u``,
+    arrival, priority point, prompt words, realised output length) and
+    the engine's settings, as ``simulate_continuous`` takes them."""
+    tasks = sorted(res["tasks"], key=lambda t: t.task.task_id)
+    return {"tasks": [(t.task.task_id, t.u, t.r, t.d, t.input_len,
+                       t.task.out_len) for t in tasks],
+            "settings": dict(
+                xi=eng.xi, num_slots=eng.num_slots,
+                kv_block_size=eng.kv_block_size,
+                kv_num_blocks=eng.kv_num_blocks,
+                prompt_len=eng.input_bucket, prefill=eng.prefill,
+                chunk_size=eng.chunk_size, token_budget=eng.token_budget,
+                decode_steps=eng.decode_steps)}
 
 
 def engine_serve(cfg, res, wall, launches) -> dict:
@@ -3012,10 +3048,183 @@ def sharded_serve(torch, mesh, card: str, lead: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry run and the simulator
+# ---------------------------------------------------------------------------
+
+#: 13a: phase 11a's step (starcoder2-3b whole, B 4, S 1024, AdamW, remat)
+DRY_BATCH, DRY_SEQ = 4, 1024
+DRY_COUNT_RTOL = 0.01            # fake vs real flops and HBM bytes
+DRY_MEMORY_RATIO = (0.8, 1.25)   # predicted resident / real peak
+DRY_STEPS = 3                    # real steps timed after the counted one
+#: 13b: the production-mesh dry run, in a subprocess on the host; the
+#: train step is the smallest whose layout moves shards by all-to-all
+DRY_CLI = ["--arch", "mamba2-1.3b", "--shape", "decode_32k"]
+DRY_CLI_A2A = ["--arch", "starcoder2-3b", "--shape", "train_4k"]
+DRY_CLI_TIMEOUT_S = 300
+
+
+def check_dry_run(torch, card: str) -> dict:
+    """13a: the dry run's shape-only train step against the same step on
+    the card, both on a (1, 1) mesh of a fake world of one under the
+    reference's policy (FSDP on, which a mesh of one leaves replicated).
+    The fake step's counts (``op_cost``), predicted resident bytes
+    (``MemTracker``) and roofline come from ``dryrun.dry_step``; the real
+    step runs once inside ``op_cost`` (its peak ``memory_allocated``
+    kept), then DRY_STEPS times outside it for the seconds a step."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, mesh as mesh_lib, op_cost, specs
+    from repro_torch.models import model as model_lib
+    from repro_torch.sharding import context as shctx, policy as policy_lib
+    cfg = configs.get_config("starcoder2-3b")
+    shape = configs.InputShape("phase11a", DRY_SEQ, DRY_BATCH, "train")
+    free_card(torch)
+    dryrun.ensure_world(1)
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), "cuda")
+        policy = policy_lib.make_policy(mesh)
+        t0 = time.perf_counter()
+        fake, mem, roof, _, _ = dryrun.dry_step(cfg, shape, policy, "cuda")
+        fake_s = time.perf_counter() - t0
+        params = model_lib.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        opt_state = specs.step_optimizer(cfg).init(params)
+        args = (params, opt_state, first_batch(torch, cfg, DRY_BATCH,
+                                               DRY_SEQ))
+        in_specs = specs.step_shardings(cfg, shape, policy, args)
+        args = dryrun.lay_out(policy, shape, args, in_specs)
+        step = specs.make_step_fn(cfg, shape)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with shctx.use_policy(policy):
+            with op_cost.OpCost() as real:
+                step(*args)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(DRY_STEPS):
+                t0 = time.perf_counter()
+                step(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        del args, params, opt_state
+    finally:
+        dist.destroy_process_group()
+    free_card(torch)
+    resident = mem["resident_bytes_per_device"]
+    out = {"model": cfg.name, "batch": DRY_BATCH, "seq": DRY_SEQ,
+           "mesh": [1, 1], "fake_step_s": fake_s,
+           "fake": {"flops": fake.flops, "hbm_bytes": fake.traffic_bytes,
+                    "resident_bytes": resident, "memory": mem},
+           "real": {"flops": real.cost.flops,
+                    "hbm_bytes": real.cost.traffic_bytes,
+                    "memory_allocated_peak_bytes": peak},
+           "flops_rel_err": abs(fake.flops / real.cost.flops - 1),
+           "hbm_bytes_rel_err": abs(fake.traffic_bytes
+                                    / real.cost.traffic_bytes - 1),
+           "memory_ratio": resident / peak,
+           "roofline": roof.to_dict(), "bound_s": roof.bound_s,
+           "step_s": times, "step_s_median": statistics.median(times)}
+    out["step_over_bound"] = out["step_s_median"] / roof.bound_s
+    print(f"dry run 13a {cfg.name} [{card}]: {json.dumps(out)}", flush=True)
+    if max(out["flops_rel_err"], out["hbm_bytes_rel_err"]) > DRY_COUNT_RTOL:
+        fail(f"dry run 13a: fake and real counts differ: {out}")
+    lo, hi = DRY_MEMORY_RATIO
+    if not lo <= out["memory_ratio"] <= hi:
+        fail(f"dry run 13a: predicted resident bytes {resident} against "
+             f"a real peak of {peak}")
+    return out
+
+
+def run_dry_run_cli(card: str, args, all_to_all: bool = False) -> dict:
+    """13b: the production-mesh dry run as a user runs it, in a
+    subprocess on the host (no card: fake tensors on a fake world of
+    256); it must end ``ok`` with flops and resident bytes above 0, and
+    with ``all_to_all`` count at least one all-to-all (DTensor's
+    Shard -> Shard as a CUDA mesh moves it, not gloo's all-gather)."""
+    import os
+    path = ROOT / "build" / f"dryrun_13b_{args[1]}.{args[3]}.json"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+         "--out", str(path)], capture_output=True, text=True, env=env,
+        cwd=str(ROOT), timeout=DRY_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not path.exists():
+        fail(f"dry run 13b: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    res = json.loads(path.read_text())
+    roof, mem, coll = res["roofline"], res["memory"], res["collectives"]
+    if res["status"] != "ok" or roof["flops_per_dev"] <= 0 or \
+            mem["resident_bytes_per_device"] <= 0 or \
+            (all_to_all and coll["counts"]["all-to-all"] < 1):
+        fail(f"dry run 13b: {json.dumps(res)}")
+    for line in proc.stdout.splitlines():
+        if line.lstrip().startswith(("[dryrun]", "resident/device",
+                                     "roofline", "collectives")):
+            print(f"dry run 13b: {line.strip()}", flush=True)
+    out = {"args": args, "wall_s": wall, "mesh": res["mesh"],
+           "roofline": roof, "memory": mem, "collectives": coll}
+    print(f"dry run 13b [{card}, host only]: {' '.join(args)}: wall "
+          f"{wall:.1f} s, "
+          f"{json.dumps({k: roof[k] for k in ('compute_s', 'memory_s', 'collective_s', 'dominant')})}",
+          flush=True)
+    return out
+
+
+def check_simulator(inputs, eager: dict) -> dict:
+    """13c: the port's ``simulate_continuous`` on phase 4's tasks (the
+    engine's own ``u`` and priority points, the realised lengths) under
+    the engine's policy and settings: every field of SCHEDULE_FIELDS the
+    simulator reports equal to phase 4's eager serve."""
+    import types
+    from repro_torch.core import priority as prio
+    from repro_torch.core import scheduler as sched, simulator
+    si = eager["sim_inputs"]
+    tasks = [prio.SimTask(task=types.SimpleNamespace(task_id=i,
+                                                     traffic_class=""),
+                          u=u, r=r, d=d, input_len=n, true_out_len=n_out)
+             for i, u, r, d, n, n_out in si["tasks"]]
+    policy = sched.POLICIES["rt-lm"](inputs["persona"],
+                                     inputs["profile"].policy_config())
+    t0 = time.perf_counter()
+    sim = simulator.simulate_continuous(tasks, policy, **si["settings"])
+    sim_s = time.perf_counter() - t0
+    got = {"completion_order": [t.task.task_id for t in sim.tasks],
+           "rejected_for_memory": sim.kv_rejected,
+           **{f: getattr(sim, f) for f in SCHEDULE_FIELDS
+              if f not in ("completion_order", "rejected_for_memory")}}
+    differ = [f for f in SCHEDULE_FIELDS if got[f] != eager[f]]
+    out = {"tasks": len(tasks), "fields": list(SCHEDULE_FIELDS),
+           "differ": differ, "sim_s": sim_s,
+           "iterations": len(sim.budget_trace),
+           "offloaded": sum(t.lane == "cpu" for t in sim.tasks)}
+    print(f"simulator 13c: {json.dumps(out)}", flush=True)
+    if differ:
+        fail(f"simulator 13c: fields {differ} differ from phase 4's eager "
+             f"serve: {json.dumps({f: [got[f], eager[f]] for f in differ})}")
+    return out
+
+
+def run_phase13(torch, inputs, eager: dict, card: str) -> dict:
+    t0 = time.perf_counter()
+    out = {"train_step": check_dry_run(torch, card),
+           "cli": [run_dry_run_cli(card, DRY_CLI),
+                   run_dry_run_cli(card, DRY_CLI_A2A, all_to_all=True)],
+           "simulator": check_simulator(inputs, eager)}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 13: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 #: per-request and per-iteration lists, kept out of the printed lines (the
 #: whole record goes to build/chip_smoke.json)
 LONG_FIELDS = ("tokens", "completion_order", "budget_trace",
-               "prefill_dispatch_trace", "decode_dispatch_trace")
+               "prefill_dispatch_trace", "decode_dispatch_trace",
+               "sim_inputs")
 
 
 def printable(row: dict) -> dict:
@@ -3141,6 +3350,10 @@ def main() -> int:
     # -- phase 12: the sharding layer on NCCL ranks
     record["sharded"] = run_sharded(
         torch, record["training"]["starcoder2-3b"]["first_step"], card)
+    save_record(record)
+
+    # -- phase 13: the dry run and the simulator
+    record["dry_run"] = run_phase13(torch, inputs, eres["eager"], card)
     record["run_s"] = time.perf_counter() - started
     save_record(record)
     print(f"chip_smoke: {record['run_s']:.1f} s", flush=True)

@@ -35,7 +35,14 @@ What is ported:
     parameters, caches and optimizer state, the expert-parallel MoE path)
     under ``launch.train --mesh`` and model-level ``prefill`` /
     ``decode_step``; as in the reference, the serving engine runs
-    unsharded.
+    unsharded;
+  * the dry-run tools (``launch.dryrun`` / ``dryrun_all`` over
+    ``launch.specs``, ``launch.op_cost`` and ``launch.analysis``): a
+    published config's step on fake tensors on a fake world of 256 or 512
+    ranks, its per-card flops, bytes and resident memory, and the H100
+    roofline;
+  * the discrete-event simulator (``core.simulator``), a copy of the
+    reference's.
 
 The paged rows' two attention kernels are hand-written CUDA for Hopper
 (``csrc/*.cu``), like the four other kernels of the reference; see

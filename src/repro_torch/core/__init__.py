@@ -7,11 +7,13 @@
   datagen    — six-type synthetic corpora + benchmark mixes     [copy]
   personas   — published per-LM coefficient profiles            [copy]
   workload   — arrival traces + traffic classes with SLO targets [copy]
+  simulator  — discrete-event serving-node model: simulate,
+               simulate_continuous, simulate_replicated, run_policy [copy]
 
-The simulator is not ported yet; the reference
-simulator (``repro.core.simulator``) is the oracle the port's engine is
-tested against.
+The engine's parity tests keep the reference's simulator
+(``repro.core.simulator``) as their oracle; ``tests/test_torch_simulator.py``
+holds this copy to it.
 """
 
 from . import (datagen, personas, predictor, priority, rulegen,  # noqa
-               scheduler, workload)
+               scheduler, simulator, workload)

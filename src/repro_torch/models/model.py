@@ -296,9 +296,33 @@ def decode_step(params: dict, cfg, cache: dict, token: torch.Tensor):
     x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
                                    "decode")
     logits = _final_logits(params, cfg, x)[:, 0]
-    next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    next_token = _greedy(logits).to(torch.int32)[:, None]
     cache["pos"] += 1
     return next_token, logits
+
+
+def _greedy(logits):
+    """argmax over the last dim of logits (B, V).  For logits split by
+    vocab under a policy, on each rank's shards: the local maximum and its
+    first index, the maximum over the vocab axes, and the smallest global
+    index that reaches it (``torch.argmax``'s first maximum); DTensor's
+    own argmax fails where the batch stays replicated on a split mesh
+    axis (B = 1)."""
+    if not (shlocal.is_dtensor(logits) and shlocal.shard_axes(logits, 1)):
+        return torch.argmax(logits, dim=-1)
+    from torch.distributed.tensor import Replicate
+    mesh, axes = logits.device_mesh, shlocal.shard_axes(logits, 1)
+    v0, _ = shlocal.local_range(logits, 1)
+    local = logits.to_local()
+    m = local.amax(dim=-1)
+    top = shlocal.all_reduce(m, mesh, axes, "max")
+    idx = torch.argmax(local, dim=-1) + v0
+    far = torch.full_like(idx, logits.shape[1])
+    first = -shlocal.all_reduce(-torch.where(m == top, idx, far), mesh,
+                                axes, "max")
+    return shlocal.wrap(first, logits, [
+        Replicate() if p.is_shard() and p.dim == 1 else p
+        for p in logits.placements])
 
 
 @torch.no_grad()

@@ -135,8 +135,6 @@ def apply_moe_local(params: dict, x: torch.Tensor, cfg):
     out = parts[:, 0]
     for j in range(1, K):
         out = out + parts[:, j]
-    if cfg.num_shared_experts:
-        out = out + layers.apply_mlp(params["shared"], xt, "swiglu")
 
     me = probs.mean(dim=0)
     ce = counts.float() / T
@@ -145,6 +143,11 @@ def apply_moe_local(params: dict, x: torch.Tensor, cfg):
     aux = {"moe_aux_loss": cfg.router_aux_weight * load_balance
            + cfg.router_z_weight * z_loss,
            "moe_drop_frac": 1.0 - keep.sum() / (T * K)}
+    # the shared expert last, as in the expert-parallel path: a remat's
+    # recompute then stops before its down projection, whose output the
+    # backward does not need
+    if cfg.num_shared_experts:
+        out = out + layers.apply_mlp(params["shared"], xt, "swiglu")
     return out.reshape(B, S, D), aux
 
 
@@ -306,7 +309,11 @@ def apply_moe_ep(params: dict, x: torch.Tensor, cfg, policy):
     out = shlocal.wrap(out.to(x.dtype).reshape(-1, S, D), x)
 
     me = probs.mean(dim=0)
-    ce = torch.bincount(top_e.reshape(-1), minlength=E).float() / T_seen
+    # expert counts by a scatter of static shape (``bincount``'s size
+    # depends on the data, which a shape-only dry run cannot know)
+    idx = top_e.reshape(-1).long()
+    ce = torch.zeros(E, dtype=torch.long, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx)).float() / T_seen
     z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     with torch.no_grad():
         n_drop = (valid & ~keep).sum().float()

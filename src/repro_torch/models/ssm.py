@@ -244,6 +244,19 @@ def apply_mamba2(params: dict, x: torch.Tensor, cfg,
     return y @ params["out_proj"], {"conv": conv_state, "ssd": final}
 
 
+def _read_state(h, C, like):
+    """h (B, nh, p, ns) times C (B, nh, ns) over ns.  Under a policy the
+    product runs on local shards, h and C laid out as the ``ssd`` state
+    ``like`` (batch and heads): as one product over the flattened
+    (B, nh) it would put two mesh axes' shards in one dim, which DTensor
+    (torch 2.11) refuses."""
+    if not shlocal.is_dtensor(h):
+        return (h @ C[..., None])[..., 0]
+    h = shlocal.layout_like(h, like)
+    C = shlocal.layout_like(C, like)
+    return shlocal.wrap((h.to_local() @ C.to_local()[..., None])[..., 0], h)
+
+
 def decode_mamba2(params: dict, x: torch.Tensor, cfg, state: dict):
     """One token, x (B, 1, D), against ``state`` {"conv", "ssd"}, which
     is updated IN PLACE (conv in its own dtype).  Returns out
@@ -270,7 +283,7 @@ def decode_mamba2(params: dict, x: torch.Tensor, cfg, state: dict):
     dBx = (dt[..., None, None] * xs.float()[..., None]) * Bh[:, :, None, :]
     h_new = state["ssd"] * decay[..., None, None] + dBx       # (B,nh,p,ns)
     shlocal.copy_into(state["ssd"], h_new)
-    y = (h_new @ Ch[..., None])[..., 0]                       # (B, nh, p)
+    y = _read_state(h_new, Ch, state["ssd"])                  # (B, nh, p)
     y = y.to(xs.dtype) + xs * params["D"][None, :, None].to(xs.dtype)
     y = layers.gated_rms_norm(y.reshape(B, di), z, params["norm"],
                               cfg.norm_eps)

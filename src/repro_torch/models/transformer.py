@@ -52,9 +52,11 @@ for them).
 
 ``apply_stack(..., mode="train")`` is the training forward: no cache, no
 write into any tensor it was given, so autograd runs through it; with
-``remat=True`` each layer runs under ``torch.utils.checkpoint``, the
-counterpart of the reference's ``jax.checkpoint`` over its scanned
-superblocks.
+``remat=True`` each layer of the reference's scanned superblocks runs
+under ``torch.utils.checkpoint``, the counterpart of its
+``jax.checkpoint``; the prefix and tail layers (kimi-k2's dense layers,
+a hybrid's last partial pattern) keep their activations, as the
+reference's unrolled ones do.
 """
 
 from __future__ import annotations
@@ -258,8 +260,9 @@ def decode_write_kv(cache_k, cache_v, k, v, pos) -> None:
         cache_k[rows, idx] = k[:, 0].to(cache_k.dtype)
         cache_v[rows, idx] = v[:, 0].to(cache_v.dtype)
         return
-    cache_k[:, idx] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, idx] = v[:, 0].to(cache_v.dtype)
+    # a 1-element index: no host read of ``pos``
+    cache_k.index_copy_(1, idx.reshape(1), k.to(cache_k.dtype))
+    cache_v.index_copy_(1, idx.reshape(1), v.to(cache_v.dtype))
 
 
 def _decode_write_shards(cache_k, cache_v, k, v, idx) -> None:
@@ -280,7 +283,9 @@ def _decode_write_shards(cache_k, cache_v, k, v, idx) -> None:
             at, keep = li[b0:b0 + bn], inside[b0:b0 + bn, None, None]
             cache[rows, at] = torch.where(keep, new, cache[rows, at])
         else:
-            cache[:, li] = torch.where(inside, new, cache[:, li])
+            at = li.reshape(1)
+            cache.index_copy_(1, at, torch.where(
+                inside, new[:, None], cache.index_select(1, at)))
 
 
 def init_slot_cache(cfg, num_slots: int, max_len: int,
@@ -399,8 +404,8 @@ def decode_slot_pos(slot_pos, pos) -> None:
     if pos.ndim:
         rows = torch.arange(slot_pos.shape[0], device=pos.device)
         slot_pos[rows, pos.long() % Wc] = pos
-    else:
-        slot_pos[pos.long() % Wc] = pos
+    else:       # a 1-element index: no host read of ``pos``
+        slot_pos.index_put_(((pos.long() % Wc).reshape(1),), pos.reshape(1))
 
 
 def _attn_decode(p, x, cache_k, cache_v, pos, slot_pos, cfg, window):
@@ -670,17 +675,20 @@ def apply_stack(stack: list, x: torch.Tensor, ctx: dict, cfg,
     MoE layers only).  ``ctx`` carries ``positions`` (and ``enc_out``, the
     encoder memory, for ``cross`` layers) in the sequence modes, the
     step's ``pos`` and the cache's bookkeeping in the others.  Caches are
-    updated in place.  ``remat`` (train only) recomputes each layer in the
-    backward pass instead of keeping its activations.  Returns (hidden
+    updated in place.  ``remat`` (train only) recomputes each layer of the
+    scanned groups in the backward pass instead of keeping its
+    activations (``stack_pattern``'s prefix and tail layers keep theirs).  Returns (hidden
     states, aux): the MoE layers' ``moe_aux_loss`` and ``moe_drop_frac``
     summed over the layers, as the reference's ``apply_stack``; 0.0 for a
     stack without MoE layers."""
     if mode == "train" and cache is not None:
         raise ValueError("mode='train' takes no cache")
     aux = {"moe_aux_loss": 0.0, "moe_drop_frac": 0.0}
+    pat, n, prefix, _ = stack_pattern(cfg)
+    scanned = range(len(prefix), len(prefix) + n * len(pat))
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), stack)):
         lc = cache["layers"][i] if cache is not None else None
-        if remat and mode == "train":
+        if remat and mode == "train" and i in scanned:
             x, a = checkpoint(shctx.under_current(_apply_layer), kind, p, x,
                               ctx, cfg, lc, mode, use_reentrant=False)
         else:

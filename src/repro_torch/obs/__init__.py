@@ -25,12 +25,12 @@ Three pieces:
   * ``obs.log``     — rate-limited warnings with countable fallback
     events (``fallback_events`` in serve results).
 
-Failure-aware serving (the reference's ``serving.faults``, not ported
-yet) adds the fault lifecycle kinds to ``EVENT_KINDS`` — ``timeout``,
-``shed``, ``retry``, ``failover``, ``replica_down``, ``replica_up``,
-``dead_letter`` — and the ``faults.*`` counters (``faults.timed_out``,
-``faults.shed``, ``faults.retries``, ``faults.failovers``,
-``faults.dead_lettered``, ``faults.replica_down``).  All of them sit
+Failure-aware serving (``serving.faults``) adds the fault lifecycle
+kinds to ``EVENT_KINDS`` — ``timeout``, ``shed``, ``retry``,
+``failover``, ``replica_down``, ``replica_up``, ``dead_letter`` — and
+the ``faults.*`` counters (``faults.timed_out``, ``faults.shed``,
+``faults.retries``, ``faults.failovers``, ``faults.dead_lettered``,
+``faults.replica_down``).  All of them sit
 inside the parity view; runs without a fault plan emit none of them.
 
 ``Observability`` bundles one recorder + one registry per run; build

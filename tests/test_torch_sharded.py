@@ -221,6 +221,9 @@ def test_serving_layout_and_launcher_under_a_mesh(tmp_path, capsys):
         for g, w in zip(r["logits"], want):
             np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
             assert (g.argmax(-1) == w.argmax(-1)).all()
+        # the greedy tokens of the vocab-split logits (model._greedy)
+        for tok, w in zip(r["next_tokens"], want[1:]):
+            assert (tok[:, 0] == w.argmax(-1)).all()
 
     run = out["launch"]
     assert run["rc"] == 0 and run["step"] == 2 and run["bitwise"]

@@ -207,13 +207,15 @@ def serve_and_launch(mesh, inputs, workdir):
                 dp, cfg, policy.distribute_one(
                     tokens, policy.spec(tokens.shape, ("batch", None))),
                 S + n, torch.float32)
-            got = [dlast]
+            got, nxt = [dlast], []
             for t in tok:
-                got.append(model_lib.decode_step(
-                    dp, cfg, dcache, torch.from_numpy(t))[1])
+                n_tok, lg = model_lib.decode_step(
+                    dp, cfg, dcache, torch.from_numpy(t))
+                got.append(lg)
+                nxt.append(full(n_tok).numpy())
         got = [full(g) for g in got]
         out[("serve", case["key"])] = {
-            "logits": [g.numpy() for g in got],
+            "logits": [g.numpy() for g in got], "next_tokens": nxt,
             "err": max(err(a, b) for a, b in zip(got, want)),
             "cache": str(dcache["layers"][0]["k"].placements)}
 
