@@ -38,10 +38,26 @@ one with ``Observability()`` and pass it to ``ServingEngine(obs=...)``,
 then export with ``obs.trace.to_jsonl(path)`` and inspect with
 ``scripts/trace_report.py`` (waterfall + percentile table) or
 ``ui.perfetto.dev`` (via ``obs.trace.export_perfetto``).
+
+Two clocks.  Events and the ``engine`` track's spans (``prefill.*``,
+``decode.window``, ``bulk_batch``) are stamped with the engine's
+virtual clock, which advances only by each dispatch's measured ``dt``.
+``Phases`` adds two tracks on the wall clock (``time.perf_counter()``,
+seconds from the first serve's start into the bundle): ``host``, the
+serve loop's phases and the ``engine.iteration`` spans they tile, and
+``device``, each dispatch's interval on the card from CUDA events on
+the engine's stream.  A device interval runs from the dispatch's first
+operation on the card (its graph's first node, an event captured into
+the graph) to its readback's completion: the host's input copies and
+graph launch before it are idle time, and a gap inside a replay counts
+as busy.  ``trace.idle_by_phase`` charges the device's idle
+seconds to the host phases.  With a profiler running, the phases are its
+ranges too; the executables' own ``dispatch:<name>`` range is gone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -51,8 +67,10 @@ from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       percentiles)
 from .slo import (SLO_METRICS, SLOMonitor, SLOSpec, WindowedHistogram)
 from .trace import (EVENT_KINDS, WALL_FIELDS, Event, RequestTimeline,
-                    Span, TraceRecorder, timelines)
+                    Span, TraceRecorder, idle_by_phase, timelines)
 
+# the reference's names; ``Phases`` and ``idle_by_phase`` (the wall-clock
+# tracks) are the port's own and stay out of the mirrored list
 __all__ = [
     "CalibrationLedger", "Counter", "Event", "EVENT_KINDS", "FALLBACKS",
     "Gauge", "Histogram", "MetricsRegistry", "Observability",
@@ -112,6 +130,9 @@ class Observability:
         #: (the default, and the R=1 serving path) leaves every stream
         #: byte-identical to single-replica recording.
         self.replica_label: Optional[int] = None
+        #: ``perf_counter`` at the first serve's start: the zero of the
+        #: wall-clock tracks, shared by every serve into this bundle
+        self.wall_origin: Optional[float] = None
         if self.trace is not None and self.slo is not None \
                 and self.slo.classes:
             self.trace.meta["slo"] = self.slo.targets_json()
@@ -271,4 +292,154 @@ class _Measure:
 
     def __exit__(self, *exc):
         self.obs.overhead_s += time.perf_counter() - self.t0
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+class Phases:
+    """One serve's host phases and its dispatches' device intervals, on
+    the wall clock.
+
+    ``phases(name, **fields)`` is a context manager around one phase of
+    the serve loop.  With a bundle whose trace is on (``obs``), the phase
+    becomes a ``Span`` on the ``host`` track; with ``ranges`` (the
+    profiler's ``record_function``, given when a profiler runs at the
+    serve's start) it also opens a profiler range of the same name.  With
+    neither, the call returns a shared no-op context: no span, no range,
+    no event.  Phases do not nest: each starts where the one before it
+    ended (the serve's start for the first), so the phases tile the serve
+    and the Python between two of them is charged to the later one; the
+    profiler's ranges open and close where the code does, so there that
+    Python is outside every range.  ``next_iteration(**fields)`` ends the
+    open ``engine.iteration`` span at the last phase's end and opens the
+    next there, so each iteration's phases are its contiguous children.
+
+    ``events`` (``torch.cuda.Event``, given with the trace on and on the
+    card) turns on the device track.  ``anchor()`` records a timing event,
+    waits for it and reads the wall clock beside it.  ``starts`` (a list,
+    None without ``events``) collects where each dispatch starts on the
+    card: the engine's graph executables append their graph's first node
+    (``generate.GraphExecutable.starts``), and ``start()`` appends an
+    event recorded on the current stream before eager work.
+    ``device(name, end, **fields)``, once ``end`` (the readback's
+    completion event) has completed, puts the interval from the first
+    collected start to ``end`` on the ``device`` track as ``anchor_wall +
+    elapsed_time(anchor, event)``, and empties ``starts``.  It reads the
+    events at once: a graph re-records its event at its next replay.  An
+    interval runs from the card's first operation of the dispatch to its
+    last, so the host's input copies and graph launch before it are idle
+    time, and the card's idle time inside it (a gap inside a replay)
+    counts as busy.
+    """
+
+    __slots__ = ("obs", "ranges", "events", "on", "origin", "mark",
+                 "starts", "_iter", "_anchor")
+
+    def __init__(self, obs: Optional[Observability] = None, *,
+                 ranges=None, events=None):
+        now = time.perf_counter()
+        self.obs = obs if obs is not None and obs.trace is not None \
+            else None
+        self.ranges = ranges
+        self.events = events if self.obs is not None else None
+        self.on = self.obs is not None or ranges is not None
+        if self.obs is not None and self.obs.wall_origin is None:
+            self.obs.wall_origin = now
+        self.origin = self.obs.wall_origin if self.obs is not None else now
+        self.mark = now               # the last phase's end
+        self.starts: Optional[list] = [] if self.events is not None \
+            else None
+        self._iter = None             # (start, fields, profiler range)
+        self._anchor = None           # (event, wall seconds)
+
+    def __call__(self, name: str, **fields):
+        if not self.on:
+            return _OFF
+        return _Phase(self, name, fields)
+
+    def _span(self, name: str, t0: float, t1: float, track: str,
+              fields: dict) -> None:
+        self.obs.span(name, t0 - self.origin, t1 - t0, track, **fields)
+
+    # -- iterations ----------------------------------------------------
+    def next_iteration(self, **fields) -> None:
+        """End the open iteration and open the next at the last phase's
+        end."""
+        if not self.on:
+            return
+        self.end_iteration()
+        rf = None
+        if self.ranges is not None:
+            rf = self.ranges("engine.iteration")
+            rf.__enter__()
+        self._iter = (self.mark, fields, rf)
+
+    def end_iteration(self) -> None:
+        """End the open iteration, if any, at the last phase's end."""
+        it, self._iter = self._iter, None
+        if it is None:
+            return
+        t0, fields, rf = it
+        if self.obs is not None:
+            self._span("engine.iteration", t0, self.mark, "host", fields)
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+    # -- the device track ----------------------------------------------
+    def event(self):
+        """A timing event recorded on the current stream (None without
+        ``events``)."""
+        if self.events is None:
+            return None
+        ev = self.events(enable_timing=True)
+        ev.record()
+        return ev
+
+    def start(self) -> None:
+        """Mark the start of eager work that no graph marks."""
+        if self.starts is not None:
+            self.starts.append(self.event())
+
+    def anchor(self) -> None:
+        if self.events is not None:
+            ev = self.event()
+            ev.synchronize()
+            self._anchor = (ev, time.perf_counter())
+
+    def device(self, name: str, end, **fields) -> None:
+        if not self.starts or end is None:
+            return
+        start = self.starts[0]
+        self.starts.clear()
+        with self.obs.measure():
+            ev, wall = self._anchor
+            t0 = wall + 1e-3 * ev.elapsed_time(start)
+            self._span(name, t0, t0 + 1e-3 * start.elapsed_time(end),
+                       "device", fields)
+
+
+class _Phase:
+    __slots__ = ("ph", "name", "fields", "t0", "rf")
+
+    def __init__(self, ph: Phases, name: str, fields: dict):
+        self.ph, self.name, self.fields = ph, name, fields
+        self.rf = None
+
+    def __enter__(self):
+        ph = self.ph
+        self.t0 = ph.mark
+        if ph.ranges is not None:
+            self.rf = ph.ranges(self.name)
+            self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        ph = self.ph
+        ph.mark = t1 = time.perf_counter()
+        if ph.obs is not None:
+            ph._span(self.name, self.t0, t1, "host", self.fields)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
         return False

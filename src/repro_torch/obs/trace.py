@@ -11,9 +11,26 @@ Each event is stamped with the engine's virtual clock (``ts``), the
 iteration index (``step`` — decode steps executed so far, the shared
 engine/sim iteration coordinate), and structured fields (slot,
 uncertainty score, KV blocks held, dispatch shape key, ...).  The real
-engine additionally records per-iteration SPANS (wall-clock
-launch→readback durations of the prefill and decode-window dispatches)
-and counter samples (KV-pool utilization) for the Perfetto timeline.
+engine additionally records SPANS and counter samples (KV-pool
+utilization) for the Perfetto timeline, on three tracks and two clocks:
+
+  * ``engine`` (the engine clock): each dispatch's charged ``dt``, its
+    launch→readback duration (``prefill.admit`` / ``prefill.ragged``,
+    ``decode.window``, ``bulk_batch``), placed where the engine clock
+    had it;
+  * ``host`` (the wall clock, seconds from the serve's start): the serve
+    loop's phases (``host.*``, ``dispatch.*``), which tile each
+    ``engine.iteration`` span (``obs.Phases``);
+  * ``device`` (the wall clock): each dispatch's interval on the card
+    (``device.prefill``, ``device.decode_window``, ``device.bulk_batch``),
+    from CUDA events mapped through one anchor event: from the event
+    captured as the dispatch graph's first node to the readback's
+    completion.  The host's graph launch falls outside it; a gap inside
+    a replay counts as busy.
+
+``idle_by_phase`` charges the device's idle wall seconds to the host
+phases, by each gap's midpoint and within each phase.  The executables' ``dispatch:<name>`` profiler
+range is gone: the ``dispatch.*`` phases name each dispatch.
 
 Parity discipline: ``ServingEngine`` and ``simulate_continuous`` emit
 the SAME event stream from the same decision points, so
@@ -21,7 +38,8 @@ the SAME event stream from the same decision points, so
 and the per-token ``times``) — compares with ``==`` between engine and
 simulator whenever their scheduling decisions agree
 (tests/test_torch_obs_engine.py holds the port to both).  Spans and
-counter samples are wall-clock-only by construction and excluded.
+counter samples carry measured times only, on every track, and are
+excluded: the simulator records none of the engine's.
 
 Exports (zero dependencies beyond the stdlib):
 
@@ -30,11 +48,13 @@ Exports (zero dependencies beyond the stdlib):
   * ``to_perfetto`` — Chrome ``trace_event`` JSON (open in
     ``ui.perfetto.dev`` or ``chrome://tracing``): one track per
     request (derived queued/prefill/decode phase spans + instants),
-    one engine track (iteration spans), counter tracks.
+    one engine track (dispatch spans), counter tracks, and the wall
+    clock's ``host`` and ``device`` tracks in a process of their own.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 from typing import Dict, List, Optional, Tuple
@@ -83,11 +103,11 @@ class Event:
 
 @dataclasses.dataclass
 class Span:
-    """One wall-clock span on an engine-side track (iteration phases:
-    prefill launch, decode window, bulk batch)."""
+    """One span on a track: ``engine`` (a dispatch's charged ``dt`` on
+    the engine clock), ``host`` or ``device`` (the wall clock)."""
 
     name: str
-    ts: float                       # span start (engine clock, seconds)
+    ts: float                       # span start (seconds, its track's clock)
     dur: float                      # duration (seconds)
     track: str = "engine"
     fields: Dict = dataclasses.field(default_factory=dict)
@@ -222,6 +242,8 @@ class TraceRecorder:
     # ------------------------------------------------------------------
     _PID_REQUESTS = 1
     _PID_ENGINE = 2
+    _PID_WALL = 3
+    _WALL_TIDS = {"host": 1, "device": 2}
 
     def to_perfetto(self) -> Dict:
         """Chrome ``trace_event`` JSON object (dump with ``json.dump``
@@ -231,8 +253,11 @@ class TraceRecorder:
         spans — ``queued`` (enqueue→admit), ``prefill`` (admit→first
         token), ``decode`` (first token→complete) — plus instants for
         chunk launches, prefix hits, rejections and eviction.  The
-        engine track (pid 2) carries the recorded wall-clock iteration
-        spans; counter samples become ``C`` events.
+        engine track (pid 2) carries the dispatch spans on the engine
+        clock; counter samples become ``C`` events.  The ``host`` and
+        ``device`` tracks are on the wall clock, so they go to a process
+        of their own (pid 3, present only when they hold spans): the two
+        clocks never share an axis.
         """
         us = 1e6
         out: List[Dict] = [
@@ -277,9 +302,19 @@ class TraceRecorder:
                         "args": {"step": e.step,
                                  **{k: v for k, v in e.fields.items()
                                     if k not in WALL_FIELDS}}})
+        wall = sorted({s.track for s in self.spans} & set(self._WALL_TIDS))
+        if wall:
+            out.append({"ph": "M", "name": "process_name",
+                        "pid": self._PID_WALL,
+                        "args": {"name": "wall clock"}})
+            out.extend({"ph": "M", "name": "thread_name",
+                        "pid": self._PID_WALL, "tid": self._WALL_TIDS[t],
+                        "args": {"name": t}} for t in wall)
         for s in self.spans:
+            tid = self._WALL_TIDS.get(s.track)
             out.append({"name": s.name, "ph": "X",
-                        "pid": self._PID_ENGINE, "tid": 0,
+                        "pid": self._PID_ENGINE if tid is None
+                        else self._PID_WALL, "tid": tid or 0,
                         "ts": s.ts * us, "dur": s.dur * us,
                         "args": dict(s.fields)})
         for name, ts, v in self.counters:
@@ -376,3 +411,70 @@ def timelines(rec: TraceRecorder) -> Dict[int, RequestTimeline]:
         elif e.kind == "reject":
             t.rejected += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the device's idle time by host phase (the wall-clock tracks)
+# ---------------------------------------------------------------------------
+
+
+def idle_by_phase(rec: TraceRecorder) -> Dict:
+    """The device's busy and idle wall seconds over the ``host`` track's
+    extent (the serves' entries to their returns), the idle seconds
+    charged to host phases two ways.
+
+    Busy is the union of the ``device`` spans.  ``idle_s``: each idle gap
+    goes, whole, to the ``host.*`` or ``dispatch.*`` phase around its
+    midpoint, or to ``host.other`` where none is (the benchmark's rule for
+    the profiler's ranges, so the two read side by side).  ``within_s``:
+    each phase's own idle seconds, its length less its overlap with busy
+    time, so a gap across several phases is split at their edges.  The
+    phases tile the serve and never nest, so the phase around a point is
+    the last to start at or before it.  Both are largest first; zeros
+    without host spans."""
+    host = [s for s in rec.spans if s.track == "host"]
+    if not host:
+        return {"window_s": 0.0, "busy_s": 0.0, "idle_s": {},
+                "within_s": {}}
+    w0 = min(s.ts for s in host)
+    w1 = max(s.ts + s.dur for s in host)
+    busy: List[Tuple[float, float]] = []
+    for a, b in sorted((max(s.ts, w0), min(s.ts + s.dur, w1))
+                       for s in rec.spans if s.track == "device"):
+        if b <= a:
+            continue
+        if busy and a <= busy[-1][1]:
+            busy[-1] = (busy[-1][0], max(b, busy[-1][1]))
+        else:
+            busy.append((a, b))
+    phases = sorted((s.ts, s.ts + s.dur, s.name) for s in host
+                    if s.name.startswith(("host.", "dispatch.")))
+    starts = [p[0] for p in phases]
+    edges = [w0] + [x for ab in busy for x in ab] + [w1]
+    gaps = [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+    idle: Dict[str, float] = {}
+    for a, b in gaps:
+        mid = 0.5 * (a + b)
+        i = bisect.bisect_right(starts, mid)
+        label = "host.other"
+        if i and mid < phases[i - 1][1]:
+            label = phases[i - 1][2]
+        idle[label] = idle.get(label, 0.0) + (b - a)
+    within: Dict[str, float] = {}
+    k = 0
+    for p0, p1, name in phases:
+        while k < len(gaps) and gaps[k][1] <= p0:
+            k += 1
+        inside = 0.0
+        for a, b in gaps[k:]:
+            if a >= p1:
+                break
+            inside += min(b, p1) - max(a, p0)
+        within[name] = within.get(name, 0.0) + inside
+
+    def largest_first(d):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1]))
+
+    return {"window_s": w1 - w0,
+            "busy_s": sum((b - a for a, b in busy), 0.0),
+            "idle_s": largest_first(idle), "within_s": largest_first(within)}

@@ -55,8 +55,15 @@ lifecycle events, spans, counters, per-class SLO observations
 the reference's decision points and from host state the loops already
 hold (the window's tokens after ``CompletionWorker.collect``, the
 allocator, the admission lists, the shape-key bookkeeping): recording
-reads nothing from the device and sits outside every graphed call, so it
-changes no result but the five observability keys.
+reads nothing from the device and sits outside every graphed call but
+one timing event a graph, so it changes no result but the five
+observability keys.  The continuous loops also record their phases
+(``obs.Phases``: ``host.*`` and ``dispatch.*`` spans tiling each
+``engine.iteration``) on the wall clock, and on the card each dispatch's
+interval on the device (``device.*`` spans) from CUDA timing events, the
+first captured into each dispatch graph; with a profiler running at the
+serve's start the phases are also its ranges, traced or not.  Without
+either no phase records anything.
 
 ``faults=ReplicaFaults(...)`` (``serving.faults``, on the continuous stall
 loop of either cache) adds the reference's failure-aware serving: the
@@ -89,7 +96,7 @@ from ..kvcache import (BlockAllocator, PrefixCache, blocks_for_tokens,
                        window_target_tokens)
 from ..kvcache.paged import PagedKVCache
 from ..models import model as model_lib, transformer
-from ..obs import Observability
+from ..obs import Observability, Phases
 from ..obs import log as obslog
 from ..obs.metrics import Histogram
 from ..prefill import (ChunkScheduler, build_packed_arrays, pack_plans,
@@ -348,6 +355,9 @@ class ServingEngine:
         self.decode_steps_total = 0
         self.decode_dispatch_trace: List[int] = []
         self._worker: Optional[CompletionWorker] = None
+        # the serve loop's phases on the wall clock (``serve`` makes one
+        # per serve; off unless obs traces or a profiler runs)
+        self._ph = Phases()
         # failure-aware serving (serving.faults.ReplicaFaults): the
         # pre-admission shed pass, straggler slowdowns and the crash point
         # of the continuous stall loop.  The crash latch and the final step
@@ -451,6 +461,17 @@ class ServingEngine:
                                     latency_s=finish - t.r)
         return finish
 
+    def _bulk_dispatch(self, batch: Sequence[prio.SimTask],
+                       now: float) -> float:
+        """A continuous loop's bulk-lane batch (``_run_batch``) as the
+        ``dispatch.bulk_batch`` phase, with its device span."""
+        ph = self._ph
+        with ph("dispatch.bulk_batch"):
+            ph.start()
+            now = self._run_batch(batch, "cpu", now)
+            ph.device("device.bulk_batch", ph.event(), size=len(batch))
+        return now
+
     # ------------------------------------------------------------------
     def serve(self, requests: Sequence[Request], *,
               step_offset: int = 0) -> Dict:
@@ -464,6 +485,14 @@ class ServingEngine:
                             or self.prefill != "stall"):
             raise ValueError("step_offset requires the continuous "
                              "stall serve loop")
+        ob = self.obs
+        # device spans only where there is a card and a trace to hold them
+        timing = (ob is not None and ob.trace is not None
+                  and self.device.type == "cuda")
+        self._ph = Phases(
+            ob, ranges=(torch.profiler.record_function
+                        if torch.autograd._profiler_enabled() else None),
+            events=torch.cuda.Event if timing else None)
         self.timed_out_tasks = []
         self.shed_tasks = []
         self.survivors = []
@@ -487,7 +516,8 @@ class ServingEngine:
             self.prefix_cache = None
         with obslog.scope(self.fallback_ledger):
             self._worker = CompletionWorker(
-                metrics=self.obs.metrics if self.obs is not None else None)
+                metrics=ob.metrics if ob is not None else None,
+                timing=timing)
             try:
                 if self.mode == "continuous":
                     if self.prefill == "chunked":
@@ -496,6 +526,8 @@ class ServingEngine:
                         requests, step_offset=step_offset)
                 return self._serve_batch(requests)
             finally:
+                # a serve that raised leaves no profiler range open
+                self._ph.end_iteration()
                 self._worker.close()
                 self._worker = None
 
@@ -766,14 +798,22 @@ class ServingEngine:
         Their graphs read its storage: a new cache object drops every
         graph (and their pool) and the warm-up captures anew; the same
         cache (``persist_prefix_cache``) keeps its graphs across serves.
-        The executables' counters restart with every serve."""
-        fresh = cache is not self._graph_cache
+        The executables' counters restart with every serve.  The dispatch
+        executables (not the copy-on-write page copy) get the serve's
+        ``Phases.starts``; a serve traced on the card where the last was
+        not, or the other way round, captures anew, so that the graphs
+        carry their start events exactly when they are read."""
+        starts = self._ph.starts
+        fresh = (cache is not self._graph_cache
+                 or (starts is None) != (self._window.starts is None))
         pool = (torch.cuda.graph_pool_handle()
                 if fresh and self._window.captures() else None)
-        for ex in self._executables().values():
+        for name, ex in self._executables().items():
             if fresh:
                 ex.reset(pool)
             ex.replays, ex.capture_s = 0, 0.0
+            if name != "cow":
+                ex.starts = starts
         self._graph_cache = cache
         self._aot_warm(cache, kvc)
 
@@ -1001,27 +1041,35 @@ class ServingEngine:
         stalled meanwhile), then runs one N-step decode window over all
         slots.  With a fault plan, an iteration first checks the crash
         point and then runs ``shed_pass`` over the queue, and a window's
-        ``dt`` is stretched by the plan's slowdown."""
+        ``dt`` is stretched by the plan's slowdown.  The phases are the
+        chunked loop's, with ``host.admit``, ``dispatch.prefill`` and
+        ``host.first_tokens`` once per admission; ``dispatch.prefill``
+        includes the prefix cache's copy-on-write and the readback of the
+        first token."""
         C = self.num_slots
         S = self.input_bucket
         ob = self.obs
+        ph = self._ph
         rf = self.faults
         paged = self.kv == "paged"
-        pending = sorted(requests, key=lambda r: r.arrival)
-        sim_tasks = [self._to_sim_task(r) for r in pending]
+        with ph("host.predict"):
+            pending = sorted(requests, key=lambda r: r.arrival)
+            sim_tasks = [self._to_sim_task(r) for r in pending]
         n = len(sim_tasks)
         queue: List[prio.SimTask] = []
         bulk: List[prio.SimTask] = []
         done: List[prio.SimTask] = []
         pc = kvc = alloc = reserved = None
-        if paged:
-            kvc, alloc, pc = self._paged_setup()
-            cache = kvc.state
-            reserved = [0] * C       # per-slot worst-case block holdback
-        else:
-            cache = transformer.init_slot_cache(self.cfg, C, self.max_len,
-                                                device=self.device)
-        self._bind_graphs(cache, kvc)
+        with ph("host.setup"):
+            if paged:
+                kvc, alloc, pc = self._paged_setup()
+                cache = kvc.state
+                reserved = [0] * C   # per-slot worst-case block holdback
+            else:
+                cache = transformer.init_slot_cache(
+                    self.cfg, C, self.max_len, device=self.device)
+            self._bind_graphs(cache, kvc)
+            ph.anchor()
         slot_task: List[Optional[prio.SimTask]] = [None] * C
         slot_gen = [0] * C
         slot_cap = [0] * C
@@ -1032,6 +1080,7 @@ class ServingEngine:
         step = step_offset
         while (len(done) + len(self.timed_out_tasks)
                + len(self.shed_tasks)) < n:
+            ph.next_iteration(step=step)
             if (rf is not None and rf.crash_at_step is not None
                     and not self._crashed and step >= rf.crash_at_step):
                 # replica death (serving.faults.CrashFault): evict the
@@ -1062,119 +1111,128 @@ class ServingEngine:
                              reason="crash", survivors=len(crash_surv))
                     ob.inc("faults.replica_down")
                 break
-            while i < n and sim_tasks[i].r <= now + 1e-9:
-                self._emit_enqueue(sim_tasks[i], step)
-                queue.append(sim_tasks[i])
-                i += 1
-            if rf is not None and queue:
-                # the pre-admission pass (serving.faults): doomed-request
-                # timeouts, then pressure shedding -- the simulator's
-                # iterate() makes the same call at the same point
-                queue, timed, dropped = shed_pass(
-                    queue, now=now, step=step, rf=rf,
-                    slo=ob.slo if ob is not None else None, obs=ob)
-                self.timed_out_tasks += timed
-                self.shed_tasks += dropped
+            with ph("host.enqueue"):
+                while i < n and sim_tasks[i].r <= now + 1e-9:
+                    self._emit_enqueue(sim_tasks[i], step)
+                    queue.append(sim_tasks[i])
+                    i += 1
+                if rf is not None and queue:
+                    # the pre-admission pass (serving.faults): doomed-
+                    # request timeouts, then pressure shedding -- the
+                    # simulator's iterate() makes the same call at the
+                    # same point
+                    queue, timed, dropped = shed_pass(
+                        queue, now=now, step=step, rf=rf,
+                        slo=ob.slo if ob is not None else None, obs=ob)
+                    self.timed_out_tasks += timed
+                    self.shed_tasks += dropped
             iter_stall = 0.0
             iter_launches = 0
 
             # --- admissions: fill freed slots, one policy call per slot
             while queue and None in slot_task:
-                running = [t for t in slot_task if t is not None]
-                prev_queue = list(queue)
-                t0 = time.perf_counter()
-                task, lane, rest = self.policy.admit(list(queue), now,
-                                                     running)
-                self.scheduler_overhead_s += time.perf_counter() - t0
-                if task is None:
-                    break
-                queue = list(rest)
-                if lane == "cpu":
-                    self._emit_offload(task, now, step)
-                    bulk.append(task)
-                    continue
-                cap = self._cap(task.task)
-                need = 0
-                if paged:
-                    # worst-case reservation gate (the simulator's
-                    # block-budget model mirrors it bit for bit)
-                    need = blocks_for_tokens(S + cap - 1,
-                                             self.kv_block_size)
-                    if need > self.kv_num_blocks - sum(reserved):
-                        queue = prev_queue       # leave it queued
-                        self._rejected_ids.add(task.task.task_id)
-                        self._emit_reject(task, now, step, need)
+                with ph("host.admit"):
+                    running = [t for t in slot_task if t is not None]
+                    prev_queue = list(queue)
+                    t0 = time.perf_counter()
+                    task, lane, rest = self.policy.admit(list(queue), now,
+                                                         running)
+                    self.scheduler_overhead_s += time.perf_counter() - t0
+                    if task is None:
                         break
-                slot = slot_task.index(None)
-                if paged:
-                    reserved[slot] = need
-                tid = task.task.task_id
-                task.task.queue_wait_s = now - task.r
-                self._emit_admit(task, now, step, slot, need)
-                stalled = any(t is not None for t in slot_task)
-                toks = self._tokenize_padded(task.task.text)
-                plan = suffix = None
-                t0 = time.perf_counter()
-                if pc is not None:
-                    last_logits, plan, suffix = self._prefix_admit(
-                        cache, kvc, alloc, pc, slot, tid, toks)
-                elif paged:
-                    kvc.set_table(slot, alloc.allocate_n(
-                        tid, alloc.blocks_for(S)))
-                    last_logits = self._admit.call_aot(
-                        self._admit_key, self.params, self.cfg, cache,
-                        toks[None], _index(slot), kvc.tables[slot],
-                        max_len=self.max_len)
-                else:
-                    last_logits = self._admit.call_aot(
-                        self._admit_key, self.params, self.cfg, cache,
-                        toks[None], _index(slot), max_len=self.max_len)
-                first = int(torch.argmax(last_logits))
-                dt = time.perf_counter() - t0
-                now += dt
-                self.prefill_dispatches += 1   # one launch per admission
-                iter_launches += 1
-                if stalled:       # live slots waited out this prefill
-                    self.prefill_stall_s += dt
-                    iter_stall += dt
-                if ob is not None:
-                    # after the timed launch, so recording never lands on
-                    # the engine clock; the reference's order
-                    pf_start, pf_key = 0, "admit"
-                    if plan is not None:
-                        self._emit_prefix_hit(plan, now, tid, step)
-                    if suffix is not None:
-                        pf_start, pf_key = plan.start, str(suffix[0])
-                        self._emit_exec_cache(now, tid, step, suffix[1],
-                                              suffix[0])
-                    ob.inc("prefill.dispatches")
-                    ob.span("prefill.admit", now - dt, dt, task=tid,
-                            slot=slot)
-                    ob.event("prefill_chunk", now, tid, step, slot=slot,
-                             start=pf_start, length=S - pf_start,
-                             finishes=True, shape_key=pf_key)
-                    self._emit_first_token(task, now, step, slot)
-                task.start, task.lane = now, "gpu"
-                task.task.start, task.task.lane = now, "gpu"
-                task.task.slot = slot
-                task.task.out_tokens = [first]
-                task.task.token_times = [now]
-                self.admission_log.append(
-                    {"task_id": tid, "slot": slot, "step": step,
-                     "now": now})
-                if first == self.eos_id or cap <= 1:
-                    task.finish = now
-                    task.task.finish, task.task.out_len = now, 1
-                    done.append(task)
-                    self._emit_complete(task, now, step, 1, evict_slot=slot)
+                    queue = list(rest)
+                    if lane == "cpu":
+                        self._emit_offload(task, now, step)
+                        bulk.append(task)
+                        continue
+                    cap = self._cap(task.task)
+                    need = 0
                     if paged:
-                        alloc.free_sequence(tid)
-                        kvc.clear_table(slot)
-                        reserved[slot] = 0
-                else:
-                    slot_task[slot] = task
-                    slot_gen[slot], slot_cap[slot] = 1, cap
-                    tokens[slot, 0] = first
+                        # worst-case reservation gate (the simulator's
+                        # block-budget model mirrors it bit for bit)
+                        need = blocks_for_tokens(S + cap - 1,
+                                                 self.kv_block_size)
+                        if need > self.kv_num_blocks - sum(reserved):
+                            queue = prev_queue       # leave it queued
+                            self._rejected_ids.add(task.task.task_id)
+                            self._emit_reject(task, now, step, need)
+                            break
+                    slot = slot_task.index(None)
+                    if paged:
+                        reserved[slot] = need
+                    tid = task.task.task_id
+                    task.task.queue_wait_s = now - task.r
+                    self._emit_admit(task, now, step, slot, need)
+                    stalled = any(t is not None for t in slot_task)
+                    toks = self._tokenize_padded(task.task.text)
+                plan = suffix = None
+                with ph("dispatch.prefill"):
+                    t0 = time.perf_counter()
+                    if pc is not None:
+                        last_logits, plan, suffix = self._prefix_admit(
+                            cache, kvc, alloc, pc, slot, tid, toks)
+                    elif paged:
+                        kvc.set_table(slot, alloc.allocate_n(
+                            tid, alloc.blocks_for(S)))
+                        last_logits = self._admit.call_aot(
+                            self._admit_key, self.params, self.cfg, cache,
+                            toks[None], _index(slot), kvc.tables[slot],
+                            max_len=self.max_len)
+                    else:
+                        last_logits = self._admit.call_aot(
+                            self._admit_key, self.params, self.cfg, cache,
+                            toks[None], _index(slot), max_len=self.max_len)
+                    top = torch.argmax(last_logits)
+                    ev1 = ph.event()
+                    first = int(top)
+                    dt = time.perf_counter() - t0
+                ph.device("device.prefill", ev1, task=tid)
+                with ph("host.first_tokens"):
+                    now += dt
+                    self.prefill_dispatches += 1   # one launch per admission
+                    iter_launches += 1
+                    if stalled:       # live slots waited out this prefill
+                        self.prefill_stall_s += dt
+                        iter_stall += dt
+                    if ob is not None:
+                        # after the timed launch, so recording never lands
+                        # on the engine clock; the reference's order
+                        pf_start, pf_key = 0, "admit"
+                        if plan is not None:
+                            self._emit_prefix_hit(plan, now, tid, step)
+                        if suffix is not None:
+                            pf_start, pf_key = plan.start, str(suffix[0])
+                            self._emit_exec_cache(now, tid, step, suffix[1],
+                                                  suffix[0])
+                        ob.inc("prefill.dispatches")
+                        ob.span("prefill.admit", now - dt, dt, task=tid,
+                                slot=slot)
+                        ob.event("prefill_chunk", now, tid, step, slot=slot,
+                                 start=pf_start, length=S - pf_start,
+                                 finishes=True, shape_key=pf_key)
+                        self._emit_first_token(task, now, step, slot)
+                    task.start, task.lane = now, "gpu"
+                    task.task.start, task.task.lane = now, "gpu"
+                    task.task.slot = slot
+                    task.task.out_tokens = [first]
+                    task.task.token_times = [now]
+                    self.admission_log.append(
+                        {"task_id": tid, "slot": slot, "step": step,
+                         "now": now})
+                    if first == self.eos_id or cap <= 1:
+                        task.finish = now
+                        task.task.finish, task.task.out_len = now, 1
+                        done.append(task)
+                        self._emit_complete(task, now, step, 1,
+                                            evict_slot=slot)
+                        if paged:
+                            alloc.free_sequence(tid)
+                            kvc.clear_table(slot)
+                            reserved[slot] = 0
+                    else:
+                        slot_task[slot] = task
+                        slot_gen[slot], slot_cap[slot] = 1, cap
+                        tokens[slot, 0] = first
 
             self.prefill_stall_max_s = max(self.prefill_stall_max_s,
                                            iter_stall)
@@ -1188,41 +1246,49 @@ class ServingEngine:
                 nsteps = self.decode_steps
                 t0 = time.perf_counter()
                 if paged:
-                    self._extend_block_tables(active, slot_task, slot_gen,
-                                              slot_cap, alloc, kvc, nsteps)
-                    window_tok = self._window.call_aot(
-                        self._window_key, self.params, self.cfg, cache,
-                        tokens, kvc.tables, num_steps=nsteps,
-                        use_kernels=self.use_kernels)
-                else:
-                    window_tok = self._window.call_aot(
-                        self._window_key, self.params, self.cfg, cache,
-                        tokens, num_steps=nsteps)
-                self._worker.submit(window_tok, t0)
-                window_host, dt = self._worker.collect()
-                if rf is not None:
-                    # straggler fault (SlowFault): stretch the window's
-                    # charge to the engine clock; parity streams carry no
-                    # time field
-                    dt *= rf.slow_factor(step)
-                now += dt
-                step += nsteps
-                self.decode_dispatches += 1
-                self.decode_steps_total += nsteps
-                self.decode_dispatch_trace.append(nsteps)
-                self.kv_util_samples.append(
-                    alloc.utilization() if paged else len(active) / C)
-                self._emit_window(now, dt, step, nsteps, len(active))
-                self._advance_decode_window(
-                    active, window_host, now, dt, slot_task, slot_gen,
-                    slot_cap, tokens, done, alloc=alloc, kvc=kvc,
-                    reserved=reserved, step=step)
-                self._snapshot(now, step, queue, slot_task)
+                    with ph("host.block_tables"):
+                        self._extend_block_tables(active, slot_task,
+                                                  slot_gen, slot_cap, alloc,
+                                                  kvc, nsteps)
+                with ph("dispatch.decode_window"):
+                    if paged:
+                        window_tok = self._window.call_aot(
+                            self._window_key, self.params, self.cfg, cache,
+                            tokens, kvc.tables, num_steps=nsteps,
+                            use_kernels=self.use_kernels)
+                    else:
+                        window_tok = self._window.call_aot(
+                            self._window_key, self.params, self.cfg, cache,
+                            tokens, num_steps=nsteps)
+                    ev1 = self._worker.submit(window_tok, t0)
+                with ph("host.collect", waits="decode_window"):
+                    window_host, dt = self._worker.collect()
+                ph.device("device.decode_window", ev1, steps=nsteps)
+                with ph("host.window_bookkeeping"):
+                    if rf is not None:
+                        # straggler fault (SlowFault): stretch the
+                        # window's charge to the engine clock; parity
+                        # streams carry no time field
+                        dt *= rf.slow_factor(step)
+                    now += dt
+                    step += nsteps
+                    self.decode_dispatches += 1
+                    self.decode_steps_total += nsteps
+                    self.decode_dispatch_trace.append(nsteps)
+                    self.kv_util_samples.append(
+                        alloc.utilization() if paged else len(active) / C)
+                    self._emit_window(now, dt, step, nsteps, len(active))
+                    self._advance_decode_window(
+                        active, window_host, now, dt, slot_task, slot_gen,
+                        slot_cap, tokens, done, alloc=alloc, kvc=kvc,
+                        reserved=reserved, step=step)
+                with ph("host.snapshot"):
+                    self._snapshot(now, step, queue, slot_task)
                 continue
 
             if bulk and not queue:
                 batch, bulk = bulk[:C], bulk[C:]
-                now = self._run_batch(batch, "cpu", now)
+                now = self._bulk_dispatch(batch, now)
                 done.extend(batch)
                 continue
 
@@ -1231,10 +1297,12 @@ class ServingEngine:
                 now = max(now, sim_tasks[i].r)
             else:
                 now += self.xi
+        ph.end_iteration()
         if not paged:
             self.slot_cache = cache
         self.last_step = step
-        return self._result(done, n)
+        with ph("host.result"):
+            return self._result(done, n)
 
     def _serve_continuous_chunked(self, requests: Sequence[Request]) -> Dict:
         """Continuous serve with chunked prefill over the paged pool.
@@ -1244,19 +1312,32 @@ class ServingEngine:
         the uncached suffix) and enqueues a chunk job; each iteration packs the token budget (decode tokens
         first, then prefill chunks in the policy's priority order), runs
         the whole plan as ONE fused ragged launch, then one N-step decode
-        window over all slots."""
+        window over all slots.
+
+        The loop's phases (``self._ph``, wall clock) tile the serve:
+        ``host.predict``, ``host.setup``, then per ``engine.iteration``
+        ``host.enqueue``, ``host.admit``, ``host.plan``, ``dispatch.prefill``,
+        ``host.collect``, ``host.first_tokens``, ``host.block_tables``,
+        ``dispatch.decode_window``, ``host.collect``,
+        ``host.window_bookkeeping``, ``host.snapshot`` (or
+        ``dispatch.bulk_batch``), each where it has work, and last
+        ``host.result``."""
         C = self.num_slots
         S = self.input_bucket
         ob = self.obs
-        pending = sorted(requests, key=lambda r: r.arrival)
-        sim_tasks = [self._to_sim_task(r) for r in pending]
+        ph = self._ph
+        with ph("host.predict"):
+            pending = sorted(requests, key=lambda r: r.arrival)
+            sim_tasks = [self._to_sim_task(r) for r in pending]
         n = len(sim_tasks)
         queue: List[prio.SimTask] = []
         bulk: List[prio.SimTask] = []
         done: List[prio.SimTask] = []
-        kvc, alloc, pc = self._paged_setup()
-        cache = kvc.state
-        self._bind_graphs(cache, kvc)
+        with ph("host.setup"):
+            kvc, alloc, pc = self._paged_setup()
+            cache = kvc.state
+            self._bind_graphs(cache, kvc)
+            ph.anchor()
         reserved = [0] * C           # per-slot worst-case block holdback
         sched = ChunkScheduler(self.chunk_size, self.token_budget,
                                metrics=ob.metrics if ob is not None
@@ -1274,148 +1355,165 @@ class ServingEngine:
         i = 0
         step = 0
         while len(done) < n:
-            while i < n and sim_tasks[i].r <= now + 1e-9:
-                self._emit_enqueue(sim_tasks[i], step)
-                queue.append(sim_tasks[i])
-                i += 1
+            ph.next_iteration(step=step)
+            with ph("host.enqueue"):
+                while i < n and sim_tasks[i].r <= now + 1e-9:
+                    self._emit_enqueue(sim_tasks[i], step)
+                    queue.append(sim_tasks[i])
+                    i += 1
 
             # --- admissions: allocate slot + blocks, enqueue chunk job
-            free = [s for s in range(C) if slot_task[s] is None
-                    and s not in job_cap]
-            while queue and free:
-                running = ([t for t in slot_task if t is not None]
-                           + [j.task for j in sorted(sched.jobs,
-                                                     key=lambda j: j.seq)])
-                prev_queue = list(queue)
-                t0 = time.perf_counter()
-                task, lane, rest = self.policy.admit(list(queue), now,
-                                                     running)
-                self.scheduler_overhead_s += time.perf_counter() - t0
-                if task is None:
-                    break
-                queue = list(rest)
-                if lane == "cpu":
-                    self._emit_offload(task, now, step)
-                    bulk.append(task)
-                    continue
-                cap = self._cap(task.task)
-                need = blocks_for_tokens(S + cap - 1, self.kv_block_size)
-                if need > self.kv_num_blocks - sum(reserved):
-                    queue = prev_queue           # leave it queued
-                    self._rejected_ids.add(task.task.task_id)
-                    self._emit_reject(task, now, step, need)
-                    break
-                slot = free.pop(0)
-                reserved[slot] = need
-                task.task.queue_wait_s = now - task.r
-                self._emit_admit(task, now, step, slot, need)
-                # all of the prompt's blocks up front; the slot's DECODE
-                # table row stays on the trash page until prefill
-                # completes (the decode step writes every row)
-                toks = self._tokenize_padded(task.task.text)
-                start = 0
-                if pc is not None:
-                    # matched prefix blocks are shared into the table;
-                    # the chunk job covers only the uncached suffix
-                    plan = pc.admit(task.task.task_id, toks)
-                    start = plan.start
-                    self._emit_prefix_hit(plan, now, task.task.task_id, step)
-                    for src, dst in plan.cow:
-                        self._cow.call_aot(self._cow_key, cache,
-                                           _index(src), _index(dst))
-                else:
-                    alloc.allocate_n(task.task.task_id, alloc.blocks_for(S))
-                row = np.full((kvc.max_blocks_per_seq,), kvc.trash_block,
-                              np.int32)
-                tbl = alloc.table(task.task.task_id)
-                row[:len(tbl)] = tbl
-                job_row[slot] = row
-                job_tokens[slot] = toks
-                job_start[slot] = start
-                job_cap[slot] = cap
-                sched.add(task, slot, S - start,
-                          self.policy.assign_priority(task))
-                self.admission_log.append(
-                    {"task_id": task.task.task_id, "slot": slot,
-                     "step": step, "now": now})
+            with ph("host.admit"):
+                free = [s for s in range(C) if slot_task[s] is None
+                        and s not in job_cap]
+                while queue and free:
+                    running = ([t for t in slot_task if t is not None]
+                               + [j.task for j in sorted(
+                                   sched.jobs, key=lambda j: j.seq)])
+                    prev_queue = list(queue)
+                    t0 = time.perf_counter()
+                    task, lane, rest = self.policy.admit(list(queue), now,
+                                                         running)
+                    self.scheduler_overhead_s += time.perf_counter() - t0
+                    if task is None:
+                        break
+                    queue = list(rest)
+                    if lane == "cpu":
+                        self._emit_offload(task, now, step)
+                        bulk.append(task)
+                        continue
+                    cap = self._cap(task.task)
+                    need = blocks_for_tokens(S + cap - 1,
+                                             self.kv_block_size)
+                    if need > self.kv_num_blocks - sum(reserved):
+                        queue = prev_queue           # leave it queued
+                        self._rejected_ids.add(task.task.task_id)
+                        self._emit_reject(task, now, step, need)
+                        break
+                    slot = free.pop(0)
+                    reserved[slot] = need
+                    task.task.queue_wait_s = now - task.r
+                    self._emit_admit(task, now, step, slot, need)
+                    # all of the prompt's blocks up front; the slot's
+                    # DECODE table row stays on the trash page until
+                    # prefill completes (the decode step writes every row)
+                    toks = self._tokenize_padded(task.task.text)
+                    start = 0
+                    if pc is not None:
+                        # matched prefix blocks are shared into the table;
+                        # the chunk job covers only the uncached suffix
+                        plan = pc.admit(task.task.task_id, toks)
+                        start = plan.start
+                        self._emit_prefix_hit(plan, now, task.task.task_id,
+                                              step)
+                        for src, dst in plan.cow:
+                            self._cow.call_aot(self._cow_key, cache,
+                                               _index(src), _index(dst))
+                    else:
+                        alloc.allocate_n(task.task.task_id,
+                                         alloc.blocks_for(S))
+                    row = np.full((kvc.max_blocks_per_seq,),
+                                  kvc.trash_block, np.int32)
+                    tbl = alloc.table(task.task.task_id)
+                    row[:len(tbl)] = tbl
+                    job_row[slot] = row
+                    job_tokens[slot] = toks
+                    job_start[slot] = start
+                    job_cap[slot] = cap
+                    sched.add(task, slot, S - start,
+                              self.policy.assign_priority(task))
+                    self.admission_log.append(
+                        {"task_id": task.task.task_id, "slot": slot,
+                         "step": step, "now": now})
 
             # --- chunk phase: the whole plan as one fused ragged launch
             iter_stall = 0.0
-            active0 = [s for s in range(C) if slot_task[s] is not None]
-            plans = sched.schedule(len(active0)) if sched.has_jobs else []
-            batch_plan = pack_plans(plans)
-            if batch_plan is not None:
-                key = batch_plan.shape_key
-                self._emit_exec_cache(now, None, step,
-                                      self._exec_key_seen(key), key)
-                # chunk offsets are relative to the job (the uncached
-                # suffix); job_start shifts them to prompt positions
-                entries = []
-                for ch in batch_plan.chunks:
-                    base = job_start[ch.slot] + ch.start
-                    entries.append((ch.slot, base,
-                                    job_tokens[ch.slot][base:
-                                                        base + ch.length],
-                                    job_row[ch.slot]))
-                tokens_arr, token_chunk, meta, tabs = build_packed_arrays(
-                    key, entries, pad_slot=C,
-                    table_width=kvc.max_blocks_per_seq,
-                    trash_block=kvc.trash_block)
-                stalled = any(t is not None for t in slot_task)
-                t0 = time.perf_counter()
-                last_logits = self._ragged.call_aot(
-                    self._ragged_key(key), self.params, self.cfg, cache,
-                    tokens_arr, token_chunk, meta, tabs,
-                    chunk_pad=batch_plan.padded_chunk_len,
-                    use_kernels=self.use_kernels)
-                # greedy pick on the device: only (Cp,) ids cross to host
-                self._worker.submit(torch.argmax(last_logits, dim=-1), t0)
-                next_ids, dt = self._worker.collect()
-                now += dt
-                self.prefill_dispatches += 1     # ONE launch, all chunks
-                if stalled:
-                    self.prefill_stall_s += dt
-                    iter_stall += dt
-                if ob is not None:
-                    ob.inc("prefill.dispatches")
-                    ob.span("prefill.ragged", now - dt, dt,
-                            chunks=len(batch_plan.chunks),
-                            tokens=batch_plan.total_tokens)
+            with ph("host.plan"):
+                active0 = [s for s in range(C) if slot_task[s] is not None]
+                plans = sched.schedule(len(active0)) if sched.has_jobs else []
+                batch_plan = pack_plans(plans)
+                if batch_plan is not None:
+                    key = batch_plan.shape_key
+                    self._emit_exec_cache(now, None, step,
+                                          self._exec_key_seen(key), key)
+                    # chunk offsets are relative to the job (the uncached
+                    # suffix); job_start shifts them to prompt positions
+                    entries = []
                     for ch in batch_plan.chunks:
-                        ob.event("prefill_chunk", now,
-                                 ch.job.task.task.task_id, step,
-                                 slot=ch.slot, start=ch.start,
-                                 length=ch.length, finishes=ch.finishes,
-                                 shape_key=str(key))
-                for ci, ch in enumerate(batch_plan.chunks):
-                    if not ch.finishes:
-                        continue
-                    s = ch.slot
-                    task = ch.job.task
-                    first = int(next_ids[ci])
-                    if pc is not None:
-                        pc.commit(task.task.task_id, job_tokens[s])
-                    cap = job_cap.pop(s)
-                    del job_tokens[s], job_row[s], job_start[s]
-                    task.start, task.lane = now, "gpu"
-                    task.task.start, task.task.lane = now, "gpu"
-                    task.task.slot = s
-                    task.task.out_tokens = [first]
-                    task.task.token_times = [now]
-                    self._emit_first_token(task, now, step, s)
-                    if first == self.eos_id or cap <= 1:
-                        task.finish = now
-                        task.task.finish, task.task.out_len = now, 1
-                        done.append(task)
-                        self._emit_complete(task, now, step, 1, evict_slot=s)
-                        alloc.free_sequence(task.task.task_id)
-                        reserved[s] = 0
-                    else:
-                        # the slot joins THIS iteration's decode window
-                        kvc.set_table(s, alloc.table(task.task.task_id))
-                        slot_task[s] = task
-                        slot_gen[s], slot_cap[s] = 1, cap
-                        tokens[s, 0] = first
+                        base = job_start[ch.slot] + ch.start
+                        entries.append((ch.slot, base,
+                                        job_tokens[ch.slot][
+                                            base:base + ch.length],
+                                        job_row[ch.slot]))
+                    tokens_arr, token_chunk, meta, tabs = \
+                        build_packed_arrays(
+                            key, entries, pad_slot=C,
+                            table_width=kvc.max_blocks_per_seq,
+                            trash_block=kvc.trash_block)
+            if batch_plan is not None:
+                stalled = any(t is not None for t in slot_task)
+                with ph("dispatch.prefill"):
+                    t0 = time.perf_counter()
+                    last_logits = self._ragged.call_aot(
+                        self._ragged_key(key), self.params, self.cfg, cache,
+                        tokens_arr, token_chunk, meta, tabs,
+                        chunk_pad=batch_plan.padded_chunk_len,
+                        use_kernels=self.use_kernels)
+                    # greedy pick on the device: only (Cp,) ids cross to
+                    # the host
+                    ev1 = self._worker.submit(
+                        torch.argmax(last_logits, dim=-1), t0)
+                with ph("host.collect", waits="prefill"):
+                    next_ids, dt = self._worker.collect()
+                ph.device("device.prefill", ev1,
+                          tokens=batch_plan.total_tokens)
+                with ph("host.first_tokens"):
+                    now += dt
+                    self.prefill_dispatches += 1     # ONE launch, all chunks
+                    if stalled:
+                        self.prefill_stall_s += dt
+                        iter_stall += dt
+                    if ob is not None:
+                        ob.inc("prefill.dispatches")
+                        ob.span("prefill.ragged", now - dt, dt,
+                                chunks=len(batch_plan.chunks),
+                                tokens=batch_plan.total_tokens)
+                        for ch in batch_plan.chunks:
+                            ob.event("prefill_chunk", now,
+                                     ch.job.task.task.task_id, step,
+                                     slot=ch.slot, start=ch.start,
+                                     length=ch.length, finishes=ch.finishes,
+                                     shape_key=str(key))
+                    for ci, ch in enumerate(batch_plan.chunks):
+                        if not ch.finishes:
+                            continue
+                        s = ch.slot
+                        task = ch.job.task
+                        first = int(next_ids[ci])
+                        if pc is not None:
+                            pc.commit(task.task.task_id, job_tokens[s])
+                        cap = job_cap.pop(s)
+                        del job_tokens[s], job_row[s], job_start[s]
+                        task.start, task.lane = now, "gpu"
+                        task.task.start, task.task.lane = now, "gpu"
+                        task.task.slot = s
+                        task.task.out_tokens = [first]
+                        task.task.token_times = [now]
+                        self._emit_first_token(task, now, step, s)
+                        if first == self.eos_id or cap <= 1:
+                            task.finish = now
+                            task.task.finish, task.task.out_len = now, 1
+                            done.append(task)
+                            self._emit_complete(task, now, step, 1,
+                                                evict_slot=s)
+                            alloc.free_sequence(task.task.task_id)
+                            reserved[s] = 0
+                        else:
+                            # the slot joins THIS iteration's decode window
+                            kvc.set_table(s, alloc.table(task.task.task_id))
+                            slot_task[s] = task
+                            slot_gen[s], slot_cap[s] = 1, cap
+                            tokens[s, 0] = first
             prefill_toks = sum(p.length for p in plans)
             self.prefill_stall_max_s = max(self.prefill_stall_max_s,
                                            iter_stall)
@@ -1431,32 +1529,38 @@ class ServingEngine:
                                             len(active))
                 # --- one N-step decode WINDOW over ALL slots
                 t0 = time.perf_counter()
-                self._extend_block_tables(active, slot_task, slot_gen,
-                                          slot_cap, alloc, kvc, nsteps)
-                window_tok = self._window.call_aot(
-                    self._window_key, self.params, self.cfg, cache, tokens,
-                    kvc.tables, num_steps=nsteps,
-                    use_kernels=self.use_kernels)
-                self._worker.submit(window_tok, t0)
-                window_host, dt = self._worker.collect()
-                now += dt
-                step += nsteps
-                self.decode_dispatches += 1
-                self.decode_steps_total += nsteps
-                self.kv_util_samples.append(alloc.utilization())
-                self._emit_window(now, dt, step, nsteps, len(active))
-                self._advance_decode_window(
-                    active, window_host, now, dt, slot_task, slot_gen,
-                    slot_cap, tokens, done, alloc=alloc, kvc=kvc,
-                    reserved=reserved, step=step)
-                self._snapshot(now, step, queue, slot_task)
+                with ph("host.block_tables"):
+                    self._extend_block_tables(active, slot_task, slot_gen,
+                                              slot_cap, alloc, kvc, nsteps)
+                with ph("dispatch.decode_window"):
+                    window_tok = self._window.call_aot(
+                        self._window_key, self.params, self.cfg, cache,
+                        tokens, kvc.tables, num_steps=nsteps,
+                        use_kernels=self.use_kernels)
+                    ev1 = self._worker.submit(window_tok, t0)
+                with ph("host.collect", waits="decode_window"):
+                    window_host, dt = self._worker.collect()
+                ph.device("device.decode_window", ev1, steps=nsteps)
+                with ph("host.window_bookkeeping"):
+                    now += dt
+                    step += nsteps
+                    self.decode_dispatches += 1
+                    self.decode_steps_total += nsteps
+                    self.kv_util_samples.append(alloc.utilization())
+                    self._emit_window(now, dt, step, nsteps, len(active))
+                    self._advance_decode_window(
+                        active, window_host, now, dt, slot_task, slot_gen,
+                        slot_cap, tokens, done, alloc=alloc, kvc=kvc,
+                        reserved=reserved, step=step)
+                with ph("host.snapshot"):
+                    self._snapshot(now, step, queue, slot_task)
                 continue
             if plans:
                 continue
 
             if bulk and not queue:
                 batch, bulk = bulk[:C], bulk[C:]
-                now = self._run_batch(batch, "cpu", now)
+                now = self._bulk_dispatch(batch, now)
                 done.extend(batch)
                 continue
 
@@ -1465,4 +1569,6 @@ class ServingEngine:
                 now = max(now, sim_tasks[i].r)
             else:
                 now += self.xi
-        return self._result(done, n)
+        ph.end_iteration()
+        with ph("host.result"):
+            return self._result(done, n)

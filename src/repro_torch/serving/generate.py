@@ -141,16 +141,17 @@ def _is_input(a) -> bool:
 
 class _Captured:
     """One key's graph: its static inputs (None for a bound argument),
-    the bound arguments and static kwargs it was captured with, and its
-    static outputs."""
+    the bound arguments and static kwargs it was captured with, its
+    static outputs and its first node's timing event (None untimed)."""
 
-    def __init__(self, graph, statics, args, kwargs, out):
+    def __init__(self, graph, statics, args, kwargs, out, start=None):
         self.graph = graph
         self.statics = statics
         self.bound = [None if s is not None else a
                       for s, a in zip(statics, args)]
         self.kwargs = kwargs
         self.out = out
+        self.start = start
 
     def check(self, args, kwargs) -> None:
         if len(args) != len(self.statics) or kwargs != self.kwargs:
@@ -198,18 +199,29 @@ class GraphExecutable:
     captures, and what a replay ran shows in the profiler, which names
     the kernels inside a graph.
 
-    Each dispatch runs under ``torch.profiler.record_function(
-    "dispatch:<name>")``, as the reference's ``TraceAnnotation``.
-    ``replays`` counts replays and ``capture_s`` the seconds spent
-    capturing, until ``reset``.
+    Unlike the reference's ``JitExecutable``, whose dispatches run inside
+    a ``TraceAnnotation("dispatch:<name>")``, an executable opens no
+    profiler range: the engine's ``dispatch.*`` phases (``obs.Phases``)
+    name each dispatch, on the wall clock, and as profiler ranges when a
+    profiler runs.  ``starts`` (None, or a list the engine hands over for
+    a traced serve on the card) marks where each call starts on the card:
+    a capture then records a timing event as its graph's first node, and
+    every call appends the event that marks its start, the graph's own on
+    a replay (reached when the stream reaches the graph, so the static
+    input copies and the host's launch come before it) or one recorded
+    just before an eager call.  A replayed graph re-records its event, so
+    a caller reads it before the key's next replay.  ``replays`` counts
+    replays and ``capture_s`` the seconds spent capturing, until
+    ``reset``.
     """
 
     def __init__(self, fn, name: str, device):
         self.fn = fn
-        self.name = f"dispatch:{name}"
+        self.name = name
         self.device = torch.device(device)
         self.pool = None
         self.aot: Dict[tuple, _Captured] = {}
+        self.starts: Optional[list] = None
         self.replays = 0
         self.capture_s = 0.0
 
@@ -231,8 +243,7 @@ class GraphExecutable:
                 if isinstance(a, np.ndarray) else a for a in args]
 
     def __call__(self, *args, **kwargs):
-        with torch.profiler.record_function(self.name):
-            return self.fn(*self._eager_args(args), **kwargs)
+        return self.fn(*self._eager_args(args), **kwargs)
 
     def warm(self, key, args, static_kwargs: Optional[dict] = None) -> None:
         """Capture ``key`` from example ``args`` (their values are not
@@ -241,21 +252,26 @@ class GraphExecutable:
             self._capture(key, args, dict(static_kwargs or {}))
 
     def call_aot(self, key, *args, **static_kwargs):
-        with torch.profiler.record_function(self.name):
-            cap = self.aot.get(key) if self.captures() else None
-            if cap is None:
-                out = self.fn(*self._eager_args(args), **static_kwargs)
-                if self.captures():
-                    self._capture(key, args, static_kwargs)
-                return out
-            cap.check(args, static_kwargs)
-            for s, a in zip(cap.statics, args):
-                if s is not None:
-                    s.copy_(torch.from_numpy(np.ascontiguousarray(a))
-                            if isinstance(a, np.ndarray) else a)
-            cap.graph.replay()
-            self.replays += 1
-            return cap.out
+        cap = self.aot.get(key) if self.captures() else None
+        if cap is None:
+            if self.starts is not None:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.starts.append(ev)
+            out = self.fn(*self._eager_args(args), **static_kwargs)
+            if self.captures():
+                self._capture(key, args, static_kwargs)
+            return out
+        cap.check(args, static_kwargs)
+        for s, a in zip(cap.statics, args):
+            if s is not None:
+                s.copy_(torch.from_numpy(np.ascontiguousarray(a))
+                        if isinstance(a, np.ndarray) else a)
+        cap.graph.replay()
+        if self.starts is not None:
+            self.starts.append(cap.start)
+        self.replays += 1
+        return cap.out
 
     def _capture(self, key, args, kwargs) -> None:
         statics = [None if not _is_input(a)
@@ -267,7 +283,12 @@ class GraphExecutable:
         capture = torch.cuda.graph(graph, pool=self.pool)
         t0 = time.perf_counter()
         _open_libraries(capture.capture_stream, self.device)
+        start = None
         with capture:
+            if self.starts is not None:
+                # an event node: each replay records it on the card
+                start = torch.cuda.Event(enable_timing=True, external=True)
+                start.record()
             out = self.fn(*call, **kwargs)
         self.capture_s += time.perf_counter() - t0
-        self.aot[key] = _Captured(graph, statics, args, kwargs, out)
+        self.aot[key] = _Captured(graph, statics, args, kwargs, out, start)

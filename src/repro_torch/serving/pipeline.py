@@ -18,6 +18,20 @@ thread blocked on the worker into the ``pipeline.collect_wait_s``
 histogram, on the serve thread only: waits near zero mean the host's
 work overlapped the device's, waits that track the launch's ``dt`` mean
 the loop is device-bound.
+
+Clocks: ``t0`` and ``dt`` are the host's wall clock; the engine charges
+``dt`` to its virtual clock.  With ``timing=True`` (a traced serve on the
+card) the completion event is a timing event, and ``submit`` returns it:
+the engine reads the card's side of the dispatch from it (the end of a
+``device.*`` span, ``obs.Phases``), with no sync beyond the one the
+worker makes anyway.  Its time is when the stream passed the readback
+copy, not when the worker woke: the difference is the handoff that
+``dt`` includes and the device span does not.  The span starts at the
+dispatch graph's first node (``generate.GraphExecutable.starts``), so the
+host's launch is outside it, but it cannot see inside the replay: a gap
+there counts as busy.  No profiler range of the executables' own
+(``dispatch:<name>``) is left; the engine's ``dispatch.*`` phases name
+each dispatch.
 """
 
 from __future__ import annotations
@@ -34,7 +48,9 @@ import torch
 class CompletionWorker:
     """Daemon thread draining device completions off the serve loop."""
 
-    def __init__(self, name: str = "completion-worker", metrics=None):
+    def __init__(self, name: str = "completion-worker", metrics=None,
+                 timing: bool = False):
+        self._timing = timing
         self._in: "queue.Queue" = queue.Queue()
         self._out: "queue.Queue" = queue.Queue()
         self._closed = False
@@ -59,19 +75,22 @@ class CompletionWorker:
                 self._out.put((None, time.perf_counter() - t0, exc))
 
     # -- scheduler side ------------------------------------------------
-    def submit(self, tensor: torch.Tensor, t0: float) -> None:
-        """Start the readback of an in-flight result launched at ``t0``."""
+    def submit(self, tensor: torch.Tensor,
+               t0: float) -> Optional[torch.cuda.Event]:
+        """Start the readback of an in-flight result launched at ``t0``;
+        returns the completion event (None for a CPU tensor)."""
         tensor = tensor.detach()
         event = None
         if tensor.device.type == "cuda":
             host = torch.empty(tensor.shape, dtype=tensor.dtype,
                                pin_memory=True)
             host.copy_(tensor, non_blocking=True)
-            event = torch.cuda.Event()
+            event = torch.cuda.Event(enable_timing=self._timing)
             event.record()
         else:
             host = tensor.clone()
         self._in.put((host, event, t0))
+        return event
 
     def collect(self) -> Tuple[np.ndarray, float]:
         """Block for the OLDEST submitted result; returns (host, dt).

@@ -899,6 +899,81 @@ def test_cuda_traced_serve_emits_the_cpu_stream(cuda, row):
         assert graphed[f] == eager[f] == plain[f], f
 
 
+@pytest.mark.cuda
+def test_cuda_traced_serve_records_device_intervals(cuda, monkeypatch):
+    """A traced chunked serve, graphed: each dispatch graph carries a
+    timing event as its first node, and one ``device.*`` span a dispatch,
+    in dispatch order, lies inside the wall time from its ``dispatch.*``
+    phase's start to its ``host.collect``'s end (give or take the anchor's
+    read after its sync) and is no longer than the ``dt`` the engine
+    charged; ``idle_by_phase`` charges the rest of the serve.  Untraced,
+    the serve makes no timing event (only the worker's completion
+    events) and its graphs none."""
+    from repro_torch.core import scheduler as sched
+    from repro_torch.obs import Observability, idle_by_phase
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg, params = _smoke_model(cuda)
+    persona, profile, texts = _engine_setup(cuda)
+    caps = [2, 5, 3, 6, 1, 4, 6, 2]
+
+    def serve(obs):
+        eng = ServingEngine(
+            params, cfg, sched.POLICIES["fifo"](persona,
+                                                profile.policy_config()),
+            profile, mode="continuous", kv="paged", kv_block_size=GBS,
+            prefill="chunked", chunk_size=5, num_slots=GC, input_bucket=16,
+            max_new_tokens=6, decode_steps=2, eos_id=-1, device=cuda,
+            obs=obs)
+        res = eng.serve([Request(text=t, arrival=0.0, task_id=i,
+                                 max_new_tokens=c)
+                         for i, (t, c) in enumerate(zip(texts, caps))])
+        graphs = [c for ex in (eng._window, eng._ragged)
+                  for c in ex.aot.values()]
+        assert graphs
+        return res, [c.start is not None for c in graphs]
+
+    timing = []
+    real = torch.cuda.Event
+
+    def event(*a, **kw):
+        timing.append(kw.get("enable_timing", False))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    _, marked = serve(None)
+    assert timing and not any(timing) and not any(marked)
+    ob = Observability()
+    res, marked = serve(ob)
+    assert all(marked)
+    spans = ob.trace.spans
+    dev = [sp for sp in spans if sp.track == "device"]
+    names = [sp.name for sp in dev]
+    assert names.count("device.prefill") == res["prefill_dispatches"] > 0
+    assert names.count("device.decode_window") == res["decode_dispatches"]
+    charged = [sp for sp in spans if sp.track == "engine"
+               and sp.name in ("prefill.ragged", "decode.window")]
+    starts = [sp for sp in spans if sp.track == "host"
+              and sp.name in ("dispatch.prefill", "dispatch.decode_window")]
+    collects = [sp for sp in spans if sp.name == "host.collect"]
+    assert len(dev) == len(charged) == len(starts) == len(collects)
+    slack = 2e-3
+    end = 0.0
+    pairs = {"device.prefill": ("prefill.ragged", "dispatch.prefill"),
+             "device.decode_window": ("decode.window",
+                                      "dispatch.decode_window")}
+    for d, c, a, w in zip(dev, charged, starts, collects):
+        assert pairs[d.name] == (c.name, a.name)
+        assert 0.0 < d.dur <= c.dur + 1e-5
+        assert a.ts - slack <= d.ts and d.ts + d.dur <= w.ts + w.dur + slack
+        assert d.ts >= end - 1e-6
+        end = d.ts + d.dur
+    split = idle_by_phase(ob.trace)
+    assert 0.0 < split["busy_s"] < split["window_s"]
+    for charged in ("idle_s", "within_s"):
+        assert sum(split[charged].values()) == pytest.approx(
+            split["window_s"] - split["busy_s"], abs=1e-9)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

@@ -667,7 +667,7 @@ def test_warmup_captures_the_references_keys(setup, monkeypatch, kw):
     monkeypatch.setattr(
         tgen.GraphExecutable, "warm",
         lambda self, key, args, static_kwargs=None: got.add(
-            (self.name.split(":")[1], key)))
+            (self.name, key)))
     for name in ("synchronize", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda *a, **k: 0)
