@@ -6,11 +6,11 @@
 Phases, in order; any failure exits non-zero:
 
   1. card — name and power limit (``nvidia-smi``), torch/CUDA versions,
-     and the build of all six CUDA kernels from ``src/repro_torch/csrc``,
-     one ``nvcc`` per source, all started together; the ``-Xptxas -v``
-     registers, spills and barriers of the five tensor-core kernels and
-     RMSNorm (the attention kernels' shared memory is dynamic, sized at
-     launch, so ptxas does not see it);
+     and the build of all seven CUDA kernel libraries from
+     ``src/repro_torch/csrc``, one ``nvcc`` per source, all started
+     together; the ``-Xptxas -v`` registers, spills and barriers of each
+     (the attention kernels' shared memory is dynamic, sized at launch, so
+     ptxas does not see it);
   2. kernels — each kernel against its plain PyTorch version on the card
      at full-width shapes (starcoder2-3b: H=24, KV=2, D=128, block 16,
      bf16; the windowed flash attention at h2o-danube-3-4b's H=32, KV=8,
@@ -21,11 +21,17 @@ Phases, in order; any failure exits non-zero:
      flushed, beside the bound (for every kernel also the time with the
      host hidden, ``device_ms``, beside the library call's, the rate
      reached and the time over the bound; the two decode kernels' split
-     plans and the grids).  Then the kernel API
-     (``kernels.ops``) as
+     plans and the grids).  The paged path's fused pointwise kernels at
+     the rt cell's shapes (128 decode rows, 640 fused prefill rows), at
+     starcoder2-3b's heads and d_model and at kimi-k2's (64/8 heads of
+     112, d_model 7168): RoPE + K/V write (``rope_kv``, decode and packed)
+     bit-equal to its plain chain, pages included, and the residual add +
+     RMSNorm (``rms_norm.add_rms_norm``) with its sum bit-equal to torch's
+     add and its norm within the limit, each timed against its plain
+     chain beside the bound.  Then the kernel API (``kernels.ops``) as
      an entry point: every op once at those shapes, launch counts reset
      just before and read just after, outputs bit-equal to the kernels'
-     own;
+     own (``rope_kv`` has no op there);
   3. model — full-width starcoder2-3b (seeded random bf16 weights, depth
      and widths as published): two fused ragged prefill iterations and a
      4-step paged decode window, once through the kernels and once
@@ -38,16 +44,18 @@ Phases, in order; any failure exits non-zero:
      prefill="chunked", decode_steps=4)`` under the RT-LM policy serves 32
      requests at full width, eager (``generate.disable_graphs()``) and
      then graphed (the engine's CUDA graphs, the default), each on a fresh
-     engine; the kernels' launch counts are reset just before each serve
-     and read just after (a wrapper counts where it launches on the host,
-     which a graph's replay does not run).  The same two serves run once
-     more under ``torch.profiler`` for the device's busy time, its idle
-     share and the kernels' share and number of runs, by name (the paged
-     decode's split and combine kernels, the fused prefill).  It fails
-     unless the graphed serve gives the eager one's tokens and schedule,
-     its profile ran each kernel as often as the eager one's and that as
-     often as the eager wrappers launched it, every decode window replayed
-     a graph, and the card idled a smaller share of the graphed serve;
+     engine; the launch counts of the attention kernels, RMSNorm and
+     ``rope_kv`` are reset just before each serve and read just after (a
+     wrapper counts where it launches on the host, which a graph's replay
+     does not run).  The same two serves run once more under
+     ``torch.profiler`` for the device's busy time, its idle share and
+     the kernels' share and number of runs, by name (the paged decode's
+     split and combine kernels, the fused prefill, RMSNorm, RoPE + K/V).
+     It fails unless the graphed serve gives the eager one's tokens and
+     schedule, its profile ran each kernel as often as the eager one's and
+     that as often as the eager wrappers launched it, every decode window
+     replayed a graph, and the card idled a smaller share of the graphed
+     serve;
   5. engine rows — the other valid rows of the configuration matrix at
      full width, each serving the same 16 requests whose 128-word prompts
      share their first 96 words (six 16-token blocks): ``mode="batch"``,
@@ -206,10 +214,11 @@ Phases, in order; any failure exits non-zero:
 
 Every number of phases 4 to 13, tokens and traces included, also goes to
 ``build/chip_smoke.json``.  Then one JSON line of kernel results
-(each kernel's launches from the path that runs it: decode and ragged
-prefill from phase 4's eager serve, beside them ``launches_d112`` and
-``device_ms_d112`` from phase 8a, chunked prefill from
-phase 3's single-chunk path, the other three from phase 2's ops path), the
+(each kernel's launches from the path that runs it: decode, ragged
+prefill, RMSNorm and RoPE + K/V from phase 4's eager serve, beside them
+``launches_d112`` from phase 8a's and ``device_ms_d112`` from phase 8a
+or phase 2's kimi-k2 cases, chunked prefill from phase 3's
+single-chunk path, the other two from phase 2's ops path), the
 card line, and as the last line ``{"ok": true, "device": {...}}``.  Needs
 a CUDA card; imports nothing of JAX.
 """
@@ -250,6 +259,14 @@ DECODE_S = 2048                  # contiguous flash decode: B=16 rows
 FA_S = 2048                      # flash attention, starcoder2-3b heads
 DANUBE = dict(H=32, KV=8, D=120, S=6144, window=4096)   # h2o-danube-3-4b
 RMS_D = 3072                     # starcoder2-3b d_model
+
+# the paged path's pointwise kernels at the rt cell's shapes (rtbench
+# chat128: 128 decode slots, a 640-token fused prefill budget) and at
+# kimi-k2's d_model; the RoPE table over ROPE_LEN positions
+RT_SLOTS = 128
+RT_PACKED = 640
+KIMI_D = 7168
+ROPE_LEN = 2048
 
 
 def fail(msg: str) -> None:
@@ -849,7 +866,148 @@ def check_rms_norm(torch, F, kmod) -> dict:
     top["limit_share"] = shares
     top["decode_rows"] = res[1]
     top["rows_8192"] = res[2]
+    top["add"] = check_add_rms_norm(torch, kmod, gen)
     top["ops"] = calls
+    return top
+
+
+def time_against_plain(torch, run, plain) -> dict:
+    """A kernel and its plain chain timed in turns, each with the host
+    showing (``ms``, ``plain_ms``) and hidden (``device_ms``,
+    ``plain_device_ms``)."""
+    fns = {"kernel": run, "plain": plain}
+    host = time_in_turns(torch, fns)
+    dev = time_in_turns(torch, fns, hide_host=True)
+    return {"ms": host["kernel"], "device_ms": dev["kernel"],
+            "plain_ms": host["plain"], "plain_device_ms": dev["plain"]}
+
+
+def check_add_rms_norm(torch, kmod, gen) -> dict:
+    """``add_rms_norm`` (the attention residual add and ``ln2``) at the
+    rt cell's decode rows and fused prefill rows, at starcoder2-3b's and
+    kimi-k2's d_model: the sum bit-equal to torch's bf16 add, the norm
+    held against ``rms_norm_ref`` of that sum; times against the plain
+    add + norm, beside the byte bound.  Keyed ``"<rows>x<D>"``."""
+    out, shares = {}, {}
+    for D_ in (RMS_D, KIMI_D):
+        w = (torch.randn((D_,), generator=gen, device="cuda") * 0.1).to(
+            torch.bfloat16)
+        for n in (RT_SLOTS, RT_PACKED):
+            x, y = (torch.randn((n, D_), generator=gen, device="cuda").to(
+                torch.bfloat16) for _ in range(2))
+            s_, o = kmod.add_rms_norm(x, y, w, 1e-6)
+            torch.cuda.synchronize()
+            key = f"{n}x{D_}"
+            if not torch.equal(s_, x + y):
+                fail(f"add_rms_norm {key}: the sum differs from x + y")
+            err = held(f"add_rms_norm {key}", o,
+                       kmod.rms_norm_ref(x + y, w, 1e-6), shares)
+            bytes_moved = 4 * x.numel() * 2 + w.numel() * 2
+            b_ms, b_by = bound(bytes_moved, 5 * x.numel(), FP32_FLOPS_PER_S)
+
+            def plain(x=x, y=y, w=w):
+                s2 = x + y
+                return s2, kmod.rms_norm_ref(s2, w, 1e-6)
+            out[key] = {"max_abs_err": err, "limit_share": shares[
+                f"add_rms_norm {key}"], "bound_ms": b_ms, "bound_by": b_by,
+                **time_against_plain(
+                    torch, lambda x=x, y=y, w=w: kmod.add_rms_norm(
+                        x, y, w, 1e-6), plain)}
+    return out
+
+
+def check_rope_kv(torch, F, kmod) -> dict:
+    """RoPE + K/V page write at the rt cell's shapes, for starcoder2-3b's
+    heads (24/2 of 128: the top level) and kimi-k2's (64/8 of 112:
+    ``d112``): ``rope_kv_decode`` over RT_SLOTS decode rows (positions
+    include a block's last row and a fresh block's first) and
+    ``rope_kv_packed`` (``packed``) over RT_PACKED packed rows gathered
+    into 8-row-overlapping padded views clipped at the end, as the
+    engine's ``qidx`` gathers them.  Each must equal its plain chain bit
+    for bit (``ref.rope_kv_decode_ref``: the rotated q and both page
+    pools; ``ref.rope_kv_packed_ref``: q, k and v).  Times against the
+    plain chain, beside the byte bound; no library call does this."""
+    from repro_torch import configs
+    from repro_torch.models import layers
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    res = {}
+    for label, name in (("d128", "starcoder2-3b"),
+                        ("d112", "kimi-k2-1t-a32b")):
+        cfg = configs.get_config(name)
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        theta = cfg.rope_theta
+        table = layers.rope_table(d, theta, ROPE_LEN, "cuda")
+        B, nb = RT_SLOTS, ROPE_LEN // BS
+        q, k, v = rnd(B, 1, h, d), rnd(B, 1, kv, d), rnd(B, 1, kv, d)
+        pos = torch.randint(0, ROPE_LEN, (B,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        pos[:4] = torch.tensor([BS - 1, BS, 0, ROPE_LEN - 1],
+                               dtype=torch.int32)
+        tables = torch.randperm(B * nb, generator=gen, device="cuda").view(
+            B, nb).to(torch.int32)
+        pools = [torch.zeros((B * nb, BS, kv, d), dtype=bf, device="cuda")
+                 for _ in range(4)]
+
+        def dec(p=pools):
+            return kmod.rope_kv_decode(q, k, v, pos, tables, p[0], p[1],
+                                       theta=theta, table=table)
+
+        def dec_plain(p=pools):
+            return kmod.rope_kv_decode_ref(q, k, v, pos, tables, p[2],
+                                           p[3], theta)
+        got, want = dec(), dec_plain()
+        torch.cuda.synchronize()
+        for what, a, b in (("q", got, want), ("k pages", pools[0], pools[2]),
+                           ("v pages", pools[1], pools[3])):
+            if not torch.equal(a, b):
+                fail(f"rope_kv_decode at {name}'s heads: {what} differ "
+                     "from the plain chain")
+        heads = h + 2 * kv
+        b_ms, b_by = bound(2 * B * heads * d * 2 + B * d * 4,
+                           3 * d * (h + kv) * B, FP32_FLOPS_PER_S)
+        decode = {"max_abs_err": 0.0, "bit_equal": True, "bound_ms": b_ms,
+                  "bound_by": b_by,
+                  **time_against_plain(torch, dec, dec_plain),
+                  "shape": {"rows": B, "H": h, "KV": kv, "D": d,
+                            "table_rows": ROPE_LEN}}
+        del pools
+
+        T, C, Tp = RT_PACKED, RT_PACKED // CHUNK, CHUNK + 8
+        ctx = torch.randint(0, ROPE_LEN - CHUNK, (C,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        positions = (ctx[:, None] + torch.arange(
+            CHUNK, device="cuda", dtype=torch.int32)[None]).reshape(-1)
+        rows = torch.clamp(torch.arange(C, device="cuda")[:, None] * CHUNK
+                           + torch.arange(Tp, device="cuda")[None], 0,
+                           T - 1).reshape(-1)
+        pq, pk, pv = rnd(T, h, d), rnd(T, kv, d), rnd(T, kv, d)
+
+        def pack():
+            return kmod.rope_kv_packed(pq, pk, pv, positions, rows,
+                                       theta=theta, table=table)
+
+        def pack_plain():
+            return kmod.rope_kv_packed_ref(pq, pk, pv, positions, rows,
+                                           theta)
+        for what, a, b in zip("qkv", pack(), pack_plain()):
+            if not torch.equal(a, b):
+                fail(f"rope_kv_packed at {name}'s heads: {what} differs "
+                     "from the plain chain")
+        R = rows.shape[0]
+        b_ms, b_by = bound(2 * R * heads * d * 2 + R * (d * 4 + 12),
+                           3 * d * (h + kv) * R, FP32_FLOPS_PER_S)
+        packed = {"max_abs_err": 0.0, "bit_equal": True, "bound_ms": b_ms,
+                  "bound_by": b_by,
+                  **time_against_plain(torch, pack, pack_plain),
+                  "shape": {"packed_rows": T, "view_rows": R, "H": h,
+                            "KV": kv, "D": d}}
+        res[label] = dict(decode, packed=packed)
+    top = dict(res["d128"], library_ms=None, d112=res["d112"], ops=[])
     return top
 
 
@@ -1032,10 +1190,12 @@ def check_single_chunk(torch, cfg, params, kmods) -> dict:
 #: seconds the profiled window stays open after the last kernel
 PROFILE_TAIL_S = 0.25
 
-# the device kernels of the engine path's two port kernels
-# (csrc/paged_decode_attention.cu, csrc/ragged_chunked_prefill.cu)
+# the device kernels of the engine path's port kernels
+# (csrc/paged_decode_attention.cu, csrc/ragged_chunked_prefill.cu, and
+# the fused pointwise csrc/rms_norm.cu and csrc/rope_kv.cu)
 PROFILE_TAGS = ("paged_decode_split_kernel", "paged_decode_combine_kernel",
-                "ragged_prefill_kernel")
+                "ragged_prefill_kernel", "rms_norm_kernel",
+                "rope_kv_")          # both rope_kv kernels
 
 
 def profile_window(torch, fn, warm: bool = True, cpu: bool = True,
@@ -1213,7 +1373,9 @@ def graph_report(label: str, eng, res) -> dict:
 #: the device kernels one launch of an engine kernel module runs
 KERNEL_EVENTS = {"paged_decode_attention": ("paged_decode_split_kernel",
                                             "paged_decode_combine_kernel"),
-                 "ragged_chunked_prefill": ("ragged_prefill_kernel",)}
+                 "ragged_chunked_prefill": ("ragged_prefill_kernel",),
+                 "rms_norm": ("rms_norm_kernel",),
+                 "rope_kv": ("rope_kv_",)}
 
 
 def same_serve(label: str, eager: dict, graphed: dict,
@@ -1238,6 +1400,8 @@ def same_serve(label: str, eager: dict, graphed: dict,
     if None in ev:
         fail(f"{label}: the profiler counted no device kernels")
     for name, tags in KERNEL_EVENTS.items():
+        if name not in eager["launches"]:
+            continue                         # not counted in this row
         for tag in tags:
             if ev[0][tag] != eager["launches"][name]:
                 fail(f"{label}: eager ran {tag} {ev[0][tag]} times for "
@@ -2154,6 +2318,8 @@ def family_serves(torch, label: str, cfg, make_engine, requests, caps,
         if events is None:
             fail(f"{label}: the profiler counted no device kernels")
         for name, tags in KERNEL_EVENTS.items():
+            if name not in want:
+                continue                     # not counted in this row
             if want[name] <= 0:
                 fail(f"{label}: kernel {name} was never launched")
             for tag in tags:
@@ -2180,10 +2346,12 @@ def family_serves(torch, label: str, cfg, make_engine, requests, caps,
     return out
 
 
-def run_kimi(torch, F, kmods, inputs, card: str) -> dict:
+def run_kimi(torch, F, kmods, inputs, card: str, serve_kmods) -> dict:
     """8a: kimi-k2-1t-a32b (2 layers) — the two engine kernels at its
     heads (D 112) against their plain versions, phase 3's model check,
-    then phase 4's row serving 16 requests eager and graphed."""
+    then phase 4's row serving 16 requests eager and graphed, the launches
+    of ``serve_kmods`` (the attention kernels and the fused pointwise
+    ones) counted."""
     cfg, params, info = family_model(torch, "kimi-k2-1t-a32b", KIMI_LAYERS)
     heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     out = {"model": info, "kernels_d112": {}}
@@ -2203,7 +2371,7 @@ def run_kimi(torch, F, kmods, inputs, card: str) -> dict:
         torch, "kimi-k2-1t-a32b paged-chunked", cfg,
         lambda: engine_for(cfg, params, inputs,
                            max_new_tokens=FAMILY_MAX_NEW, **PHASE4_ROW),
-        requests, caps, kmods, card, profile_graphed=True)
+        requests, caps, serve_kmods, card, profile_graphed=True)
     launches = out["serves"]["eager"]["launches"]
     if min(launches.values()) <= 0:
         fail(f"kimi-k2: an engine kernel was never launched: {launches}")
@@ -2262,9 +2430,10 @@ def run_window_model(torch, name: str, layers, kmods, inputs,
         WINDOW_REQUESTS, "fifo", "sliding-window", kmods, inputs, card)}
 
 
-def run_families(torch, F, kmods, inputs, card: str) -> dict:
+def run_families(torch, F, kmods, inputs, card: str, serve_kmods) -> dict:
     """Phase 8, one model on the card at a time."""
-    out = {"kimi-k2-1t-a32b": run_kimi(torch, F, kmods, inputs, card)}
+    out = {"kimi-k2-1t-a32b": run_kimi(torch, F, kmods, inputs, card,
+                                       serve_kmods)}
     free_card(torch)
     out["h2o-danube-3-4b"] = run_window_model(
         torch, "h2o-danube-3-4b", None, kmods, inputs, card)
@@ -3251,6 +3420,8 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch import configs
     from repro_torch.kernels import KERNELS, _build
+    from repro_torch.kernels import rms_norm as rms_mod
+    from repro_torch.kernels import rope_kv as rope_mod
     from repro_torch.models import model as model_lib
 
     # -- phase 1: card and build
@@ -3262,12 +3433,7 @@ def main() -> int:
     build_s = _build.build([m.NAME for m in KERNELS])
     print(f"kernel build: {json.dumps(build_s)} "
           f"(wall {time.perf_counter() - t0:.1f} s)", flush=True)
-    for name, lines in ptxas_report(("flash_attention",
-                                     "flash_decode_attention",
-                                     "paged_decode_attention",
-                                     "ragged_chunked_prefill",
-                                     "chunked_prefill_attention",
-                                     "rms_norm")).items():
+    for name, lines in ptxas_report([m.NAME for m in KERNELS]).items():
         for ln in lines:
             print(f"ptxas {name}: {ln}", flush=True)
 
@@ -3275,12 +3441,15 @@ def main() -> int:
     checks = {}
     for m, check in zip(KERNELS, (check_decode, check_ragged,
                                   check_chunked_prefill, check_rms_norm,
-                                  check_flash_attention, check_flash_decode)):
+                                  check_flash_attention, check_flash_decode,
+                                  check_rope_kv)):
         checks[m.NAME] = check(torch, F, m)
         shown = {k: v for k, v in checks[m.NAME].items() if k != "ops"}
         print(f"kernel {m.NAME}: {json.dumps(shown)}", flush=True)
+    # rope_kv has no op in the kernel API (the reference runs plain jnp)
     ops_launches = run_ops_path(
-        torch, KERNELS, [c for r in checks.values() for c in r["ops"]])
+        torch, [m for m in KERNELS if checks[m.NAME]["ops"]],
+        [c for r in checks.values() for c in r["ops"]])
     print(f"ops path: launches {json.dumps(ops_launches)}", flush=True)
 
     # -- phase 3: full-width model
@@ -3301,8 +3470,11 @@ def main() -> int:
 
     # -- phase 4: engine
     # the engine's main path runs the decode and fused prefill kernels
+    # and the fused pointwise ones (RMSNorm with and without the residual
+    # add, RoPE + K/V write), all counted in its serves
     inputs = serving_inputs()
-    eres = run_engine(torch, cfg, params, KERNELS[:2], inputs)
+    engine_kmods = KERNELS[:2] + (rms_mod, rope_mod)
+    eres = run_engine(torch, cfg, params, engine_kmods, inputs)
     record = {"card": card, "engine": eres}
     save_record(record)
     for mode in ("eager", "graphed"):
@@ -3331,7 +3503,7 @@ def main() -> int:
     free_card(torch)
     print(f"phase 8: {torch.cuda.memory_allocated()} bytes still allocated",
           flush=True)
-    fres = run_families(torch, F, KERNELS[:2], inputs, card)
+    fres = run_families(torch, F, KERNELS[:2], inputs, card, engine_kmods)
     record["families"] = fres
     save_record(record)
 
@@ -3361,12 +3533,18 @@ def main() -> int:
     # each kernel's launches on the path that runs it, counted where its
     # wrapper launches it: the eager serve (the graphed one ran the same
     # kernels, counted by name in its profile)
-    path_launches = {
-        "paged_decode_attention": eres["eager"]["launches"],
-        "ragged_chunked_prefill": eres["eager"]["launches"],
-        "chunked_prefill_attention": sres["launches"],
-    }
+    path_launches = {m.NAME: eres["eager"]["launches"]
+                     for m in engine_kmods}
+    path_launches["chunked_prefill_attention"] = sres["launches"]
     kimi = fres["kimi-k2-1t-a32b"]
+    kimi_launches = kimi["serves"]["eager"]["launches"]
+    # device ms at kimi-k2's shapes: its heads (phase 8a) for the
+    # attention kernels, phase 2's d112 / 7168-wide cases for the others
+    d112_ms = {name: r["device_ms"]
+               for name, r in kimi["kernels_d112"].items()}
+    d112_ms["rope_kv"] = checks["rope_kv"]["d112"]["device_ms"]
+    d112_ms["rms_norm"] = checks["rms_norm"]["add"][
+        f"{RT_SLOTS}x{KIMI_D}"]["device_ms"]
     kernels = []
     for m in KERNELS:
         r = checks[m.NAME]
@@ -3377,12 +3555,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        if m.NAME in kimi["kernels_d112"]:
+        if m.NAME in kimi_launches:
             # phase 8a's eager serve at kimi-k2's head dim 112
-            entry["launches_d112"] = \
-                kimi["serves"]["eager"]["launches"][m.NAME]
-            entry["device_ms_d112"] = kimi["kernels_d112"][m.NAME][
-                "device_ms"]
+            entry["launches_d112"] = kimi_launches[m.NAME]
+            entry["device_ms_d112"] = d112_ms[m.NAME]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -9,6 +9,14 @@
 // x's dtype, in the order models.layers.rms_norm uses:
 // (x * rsqrt(var + eps)) * (1 + w).  x and w are each bf16 or float32.
 //
+// The second entry, rtlm_add_rms_norm, is the residual add of a layer and
+// the norm that follows it (the attention branch's output y added to the
+// residual stream x, then ln2): it writes sum = x + y, each element one
+// float32 sum rounded to x's dtype (torch's add, bit for bit), and the norm
+// of that rounded sum, which it keeps in registers: one launch, x and y
+// read once, where the plain chain takes an add and ~9 launches of norm
+// that read the sum again.
+//
 // What bounds it on the H100: memory.  Each element is read once and
 // written once for ~4 float32 operations, two orders of magnitude below
 // the card's operations-per-byte ridge; at 2048 x 3072 bf16 the bytes take
@@ -162,9 +170,14 @@ __device__ __forceinline__ void load_row(uint4 (&v)[MAXV], const TX* x,
 // the next block's vectors are loaded before the current one is reduced
 // and stored.  Every thread of a CTA walks the same blocks, so a group
 // past the last row still meets the barrier.
-template <typename TX, typename TW, int MAXV>
+//
+// kAdd: x is the residual stream and y the branch output; the row normed
+// is their sum, rounded to TX and stored to `sum` as it is formed (the
+// vectors of y are loaded and prefetched beside those of x).
+template <typename TX, typename TW, int MAXV, bool kAdd>
 __global__ void __launch_bounds__(kThreads)
-    rms_norm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+    rms_norm_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
+                    const TW* __restrict__ w, TX* __restrict__ sum,
                     TX* __restrict__ out, int N, int D, int wpr, float eps) {
   constexpr int E = V16<TX>::E;
   constexpr bool kPrefetch = MAXV == 4;
@@ -177,18 +190,41 @@ __global__ void __launch_bounds__(kThreads)
   const int nv = D / E;
   const bool vec =
       D % E == 0 && nv <= tpr * MAXV &&
-      (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) & 15) == 0;
+      (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out | (uintptr_t)y |
+        (uintptr_t)sum) & 15) == 0;
 
   if (vec) {
+    constexpr int YV = kAdd ? MAXV : 1;
     uint4 v[MAXV], nx[kPrefetch ? MAXV : 1];
+    uint4 yv[YV], ny[kPrefetch ? YV : 1];
     int64_t row = (int64_t)blockIdx.x * groups + gi;
     load_row<TX, MAXV>(v, x, row, N, D, t, tpr, nv);
+    if constexpr (kAdd) load_row<TX, MAXV>(yv, y, row, N, D, t, tpr, nv);
     for (int blk = blockIdx.x, it = 0; blk < n_blocks;
          blk += gridDim.x, ++it) {
       const int64_t next = row + (int64_t)gridDim.x * groups;
       if constexpr (kPrefetch) {
-        if (blk + (int)gridDim.x < n_blocks)
+        if (blk + (int)gridDim.x < n_blocks) {
           load_row<TX, MAXV>(nx, x, next, N, D, t, tpr, nv);
+          if constexpr (kAdd)
+            load_row<TX, MAXV>(ny, y, next, N, D, t, tpr, nv);
+        }
+      }
+      if constexpr (kAdd) {
+        uint4* srow = reinterpret_cast<uint4*>(sum + row * D);
+#pragma unroll
+        for (int i = 0; i < MAXV; ++i) {
+          const int j = t + i * tpr;
+          if (row < N && j < nv) {
+            float f[E], g[E];
+            V16<TX>::to_float(v[i], f);
+            V16<TX>::to_float(yv[i], g);
+#pragma unroll
+            for (int k = 0; k < E; ++k) f[k] = __fadd_rn(f[k], g[k]);
+            v[i] = V16<TX>::from_float(f);
+            srow[j] = v[i];
+          }
+        }
       }
       float ss = 0.f;
 #pragma unroll
@@ -219,8 +255,13 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (kPrefetch) {
 #pragma unroll
         for (int i = 0; i < MAXV; ++i) v[i] = nx[i];
+        if constexpr (kAdd) {
+#pragma unroll
+          for (int i = 0; i < MAXV; ++i) yv[i] = ny[i];
+        }
       } else if (blk + (int)gridDim.x < n_blocks) {
         load_row<TX, MAXV>(v, x, next, N, D, t, tpr, nv);
+        if constexpr (kAdd) load_row<TX, MAXV>(yv, y, next, N, D, t, tpr, nv);
       }
       row = next;
     }
@@ -233,14 +274,21 @@ __global__ void __launch_bounds__(kThreads)
       float ss = 0.f;
       if (row < N)
         for (int d = t; d < D; d += tpr) {
-          const float f = to_f(xr[d]);
+          float f = to_f(xr[d]);
+          if constexpr (kAdd) {
+            const TX s = from_f<TX>(__fadd_rn(f, to_f(y[row * D + d])));
+            sum[row * D + d] = s;
+            f = to_f(s);
+          }
           ss = fmaf(f, f, ss);
         }
       const float r =
           rsqrtf(group_sum(ss, slots[it & 1], wpr) / (float)D + eps);
+      // the second read of the row: the sum this thread stored above
+      const TX* src = kAdd ? sum + row * D : xr;
       if (row < N)
         for (int d = t; d < D; d += tpr)
-          orow[d] = from_f<TX>((to_f(xr[d]) * r) * (1.f + to_f(w[d])));
+          orow[d] = from_f<TX>((to_f(src[d]) * r) * (1.f + to_f(w[d])));
     }
   }
 }
@@ -249,9 +297,10 @@ __global__ void __launch_bounds__(kThreads)
 // the CTAs the card holds at once; then one wave, each CTA taking two
 // blocks with the second one's loads in flight under the first (a second
 // wave would start its loads only as the first wave's CTAs retire).
-template <typename TX, typename TW, int MAXV>
-cudaError_t launch_rows(const void* x, const void* w, void* out, int N,
-                        int D, int wpr, float eps, cudaStream_t stream) {
+template <typename TX, typename TW, int MAXV, bool kAdd>
+cudaError_t launch_rows(const void* x, const void* y, const void* w,
+                        void* sum, void* out, int N, int D, int wpr,
+                        float eps, cudaStream_t stream) {
   static int resident = 0;  // CTAs the card holds at once
   if (resident == 0) {
     int dev, sms, per_sm;
@@ -261,7 +310,7 @@ cudaError_t launch_rows(const void* x, const void* w, void* out, int N,
                                    dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, rms_norm_kernel<TX, TW, MAXV>, kThreads, 0);
+          &per_sm, rms_norm_kernel<TX, TW, MAXV, kAdd>, kThreads, 0);
     if (err != cudaSuccess) return err;
     resident = sms * per_sm;
   }
@@ -269,44 +318,61 @@ cudaError_t launch_rows(const void* x, const void* w, void* out, int N,
   const int n_blocks = (N + rows_per_cta - 1) / rows_per_cta;
   const int grid = n_blocks <= 2 * resident ? min(n_blocks, resident)
                                             : n_blocks;
-  rms_norm_kernel<TX, TW, MAXV><<<grid, kThreads, 0, stream>>>(
-      (const TX*)x, (const TW*)w, (TX*)out, N, D, wpr, eps);
+  rms_norm_kernel<TX, TW, MAXV, kAdd><<<grid, kThreads, 0, stream>>>(
+      (const TX*)x, (const TX*)y, (const TW*)w, (TX*)sum, (TX*)out, N, D,
+      wpr, eps);
   return cudaGetLastError();
 }
 
-template <typename TX, typename TW>
-cudaError_t launch(const void* x, const void* w, void* out, int N, int D,
-                   float eps, cudaStream_t stream) {
+template <typename TX, typename TW, bool kAdd>
+cudaError_t launch(const void* x, const void* y, const void* w, void* sum,
+                   void* out, int N, int D, float eps, cudaStream_t stream) {
   // the fewest warps a row whose threads hold it in MAXV vectors each
   constexpr int E = V16<TX>::E;
   const int nv = (D + E - 1) / E;
   const int maxv = nv <= kThreads * 4 ? 4 : 16;
   int wpr = 1;
   while (wpr < kWarps && nv > wpr * 32 * maxv) wpr *= 2;
-  return maxv == 4
-             ? launch_rows<TX, TW, 4>(x, w, out, N, D, wpr, eps, stream)
-             : launch_rows<TX, TW, 16>(x, w, out, N, D, wpr, eps, stream);
+  return maxv == 4 ? launch_rows<TX, TW, 4, kAdd>(x, y, w, sum, out, N, D,
+                                                  wpr, eps, stream)
+                   : launch_rows<TX, TW, 16, kAdd>(x, y, w, sum, out, N, D,
+                                                   wpr, eps, stream);
+}
+
+// x_bf16 / w_bf16: 1 for bf16, 0 for float32.  y and sum null for the
+// plain norm.
+template <bool kAdd>
+int run(const void* x, const void* y, const void* w, void* sum, void* out,
+        int N, int D, int x_bf16, int w_bf16, float eps, void* stream) {
+  if (N == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (x_bf16 && w_bf16)
+    err = launch<bf16, bf16, kAdd>(x, y, w, sum, out, N, D, eps, s);
+  else if (x_bf16)
+    err = launch<bf16, float, kAdd>(x, y, w, sum, out, N, D, eps, s);
+  else if (w_bf16)
+    err = launch<float, bf16, kAdd>(x, y, w, sum, out, N, D, eps, s);
+  else
+    err = launch<float, float, kAdd>(x, y, w, sum, out, N, D, eps, s);
+  return (int)err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x_bf16 / w_bf16: 1 for bf16, 0 for float32.
 int rtlm_rms_norm(const void* x, const void* w, void* out, int N, int D,
                   int x_bf16, int w_bf16, float eps, void* stream) {
-  if (N == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (x_bf16 && w_bf16)
-    err = launch<bf16, bf16>(x, w, out, N, D, eps, s);
-  else if (x_bf16)
-    err = launch<bf16, float>(x, w, out, N, D, eps, s);
-  else if (w_bf16)
-    err = launch<float, bf16>(x, w, out, N, D, eps, s);
-  else
-    err = launch<float, float>(x, w, out, N, D, eps, s);
-  return (int)err;
+  return run<false>(x, nullptr, w, nullptr, out, N, D, x_bf16, w_bf16, eps,
+                    stream);
+}
+
+// x, y, sum and out of one dtype (x_bf16), every one (N, D).
+int rtlm_add_rms_norm(const void* x, const void* y, const void* w,
+                      void* sum, void* out, int N, int D, int x_bf16,
+                      int w_bf16, float eps, void* stream) {
+  return run<true>(x, y, w, sum, out, N, D, x_bf16, w_bf16, eps, stream);
 }
 
 }  // extern "C"

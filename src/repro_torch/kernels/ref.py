@@ -20,6 +20,11 @@ the plain version compute exactly what the CUDA kernels compute:
 The kernel wrappers call these for CPU tensors; the tests hold them
 against the Pallas kernels in interpret mode, and ``chip_smoke.py`` holds
 the CUDA kernels against them on the card.
+
+The RoPE + K/V write kernels of the paged model path (``rope_kv``) have
+no Pallas counterpart: their plain versions are the model's own chains
+(``rope_kv_decode_ref``, ``rope_kv_packed_ref``), and ``rope_by_table``
+is the kernels' arithmetic, which equals ``layers.apply_rope`` bit for bit.
 """
 
 from __future__ import annotations
@@ -381,3 +386,50 @@ def rms_norm_ref(x, weight, eps: float = 1e-6):
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + weight.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE + K/V write (the paged model path)
+# ---------------------------------------------------------------------------
+
+
+def rope_by_table(x, positions, table):
+    """The ``rope_kv`` kernels' arithmetic: x (..., S, H, D) rotated by
+    the rows ``positions`` (..., S) of ``table`` (L, D) float32
+    (``layers.rope_table``: cos in the first half, sin in the second), one
+    float32 product, difference or sum at a time, cast to x's dtype."""
+    half = x.shape[-1] // 2
+    cs = table[positions.long()][..., None, :]             # (..., S, 1, D)
+    cos, sin = cs[..., :half], cs[..., half:]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def rope_kv_decode_ref(q, k, v, pos, block_tables, k_pages, v_pages,
+                       theta: float):
+    """The decode layer's chain: q (B, 1, H, D) and k (B, 1, KV, D)
+    rotated at ``pos`` (B,) by ``layers.apply_rope``, k and v (B, 1, KV,
+    D) written into their pages at ``pos`` (``paged.scatter_token``, in
+    place).  Returns the rotated q as (B, H, D), contiguous."""
+    from ..kvcache import paged as paged_lib
+    from ..models.layers import apply_rope
+    q = apply_rope(q, pos[..., None], theta)
+    k = apply_rope(k, pos[..., None], theta)
+    paged_lib.scatter_token(k_pages, k[:, 0], block_tables, pos)
+    paged_lib.scatter_token(v_pages, v[:, 0], block_tables, pos)
+    return q[:, 0].contiguous()
+
+
+def rope_kv_packed_ref(q, k, v, positions, rows, theta: float):
+    """The packed prefill's chain: q (T, H, D) and k (T, KV, D) rotated at
+    ``positions`` (T,) by ``layers.apply_rope``, then rows ``rows`` (R,)
+    of q, k and v (all T rows when None; v may be None).  Returns (q, k,
+    v) of R rows."""
+    from ..models.layers import apply_rope
+    q = apply_rope(q[None], positions[None], theta)[0]
+    k = apply_rope(k[None], positions[None], theta)[0]
+    if rows is not None:
+        q, k = q[rows], k[rows]
+        v = v[rows] if v is not None else None
+    return q, k, v

@@ -133,10 +133,12 @@ class PagedKVCache:
 
     Owns the device-side state (per-layer K/V page pools plus per-slot
     ``pos``, built by ``transformer.init_paged_cache``; both are updated in
-    place by the model) and the host-side ``(num_slots, max_blocks_per_seq)``
-    numpy block-table array.  One extra physical page, ``trash_block``
-    (= ``num_blocks``), is never handed out by the allocator: evicted
-    (dead) decode rows keep stepping and their tables point there.
+    place by the model; on the card also the RoPE table over a whole
+    block table's positions) and the host-side ``(num_slots,
+    max_blocks_per_seq)`` numpy block-table array.  One extra physical
+    page, ``trash_block`` (= ``num_blocks``), is never handed out by the
+    allocator: evicted (dead) decode rows keep stepping and their tables
+    point there.
     ``device=None`` means the card and raises when none is present.
     """
 
@@ -152,7 +154,8 @@ class PagedKVCache:
         self.trash_block = num_blocks
         self.state = transformer.init_paged_cache(
             cfg, num_slots, num_blocks + 1, block_size, dtype,
-            resolve_device(device))
+            resolve_device(device),
+            rope_len=self.max_blocks_per_seq * block_size)
         self.device = self.state["pos"].device
         self.tables = np.full((num_slots, self.max_blocks_per_seq),
                               self.trash_block, np.int32)

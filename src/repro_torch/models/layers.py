@@ -92,6 +92,18 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / torch.pow(float(theta), exps)
 
 
+def rope_table(head_dim: int, theta: float, length: int,
+               device) -> torch.Tensor:
+    """(length, head_dim) float32: row p holds the cosines of position
+    p's angles in its first half and their sines in its second, computed
+    by ``apply_rope``'s own operations, so a rotation that reads it
+    (``kernels.rope_kv``, ``kernels.ref.rope_by_table``) is
+    ``apply_rope``'s bit for bit."""
+    angles = (torch.arange(length, dtype=torch.float32, device=device)[:, None]
+              * rope_freqs(head_dim, theta, device))
+    return torch.cat([torch.cos(angles), torch.sin(angles)], dim=-1)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10_000.0) -> torch.Tensor:
     """x: (..., S, H, D); positions: broadcastable to (..., S)."""
@@ -392,8 +404,9 @@ def init_attention(generator, cfg, dtype, device) -> dict:
     }
 
 
-def attention_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                  rope_theta: float):
+def attention_proj(params: dict, x: torch.Tensor):
+    """The q, k and v projections of x, laid out as the policy asks (no
+    rotation)."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
@@ -402,6 +415,12 @@ def attention_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
         q = policy.constrain(q, policy.attn_q_axes(q.shape[1], q.shape[2]))
     k = shctx.constrain(k, ("batch", None, "kv_heads", None))
     v = shctx.constrain(v, ("batch", None, "kv_heads", None))
+    return q, k, v
+
+
+def attention_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                  rope_theta: float):
+    q, k, v = attention_proj(params, x)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     return q, k, v

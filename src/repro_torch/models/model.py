@@ -101,8 +101,11 @@ def _gathered(params: dict, key: str):
     return policy.gather_fsdp(params[key], (key,))
 
 
-def _final_logits(params, cfg, x):
-    x = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
+def _final_logits(params, cfg, x, use_kernels: bool = False):
+    """The final norm (through the RMSNorm kernel on a paged path with the
+    kernels) and the logits, in float32."""
+    x = transformer.paged_rms_norm(x, params["final_ln"], cfg.norm_eps,
+                                   use_kernels)
     return layers.logits(params["embed"], x, cfg).float()
 
 
@@ -378,10 +381,11 @@ def decode_step_paged(params: dict, cfg, cache: dict, token: torch.Tensor,
     returns (next_token (B, 1) i32, logits (B, V) f32)."""
     x = shctx.constrain(layers.embed(params["embed"], token, cfg),
                         ("batch", None, None))
-    ctx = {"pos": cache["pos"], "tables": tables, "use_kernels": use_kernels}
+    ctx = {"pos": cache["pos"], "lens": cache["pos"] + 1, "tables": tables,
+           "use_kernels": use_kernels, "rope": cache.get("rope")}
     x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
                                    "decode_paged")
-    logits = _final_logits(params, cfg, x)[:, 0]
+    logits = _final_logits(params, cfg, x, use_kernels)[:, 0]
     next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     cache["pos"] += 1
     return next_token, logits
@@ -427,16 +431,24 @@ def prefill_chunks(params: dict, cfg, cache: dict, tokens: torch.Tensor,
     local = torch.arange(TT, dtype=torch.int32, device=dev) - q_off[token_chunk]
     positions = ctx_lens[token_chunk] + local
     valid = local < lens[token_chunk]
+    # the packed row of each row of the chunks' padded views (clipped),
+    # and the view row of each packed row, for every layer
+    qidx = torch.clamp(q_off.long()[:, None]
+                       + torch.arange(chunk_pad, device=dev)[None, :],
+                       0, TT - 1).reshape(-1)
+    repack = (token_chunk * chunk_pad
+              + torch.clamp(local, 0, chunk_pad - 1).long())
     x = shctx.constrain(layers.embed(params["embed"], tokens, cfg),
                         ("batch", None, None))
     ctx = {"positions": positions, "token_chunk": token_chunk,
-           "local": local, "valid": valid, "meta": meta,
+           "valid": valid, "meta": meta, "qidx": qidx, "repack": repack,
            "table_rows": tables.to(torch.int32), "chunk_pad": chunk_pad,
-           "use_kernels": use_kernels}
+           "use_kernels": use_kernels, "rope": cache.get("rope")}
     x, _ = transformer.apply_stack(params["layers"], x, ctx, cfg, cache,
                                    "chunks")
     last_idx = torch.clamp(q_off + torch.clamp(lens, min=1) - 1, 0, TT - 1)
-    last_logits = _final_logits(params, cfg, x[:, last_idx.long()])[0]
+    last_logits = _final_logits(params, cfg, x[:, last_idx.long()],
+                                use_kernels)[0]
     # the reference drops the pos update of padding chunks (slot out of
     # range); here they write into one spare entry that is then cut off
     pos = cache["pos"]
@@ -472,6 +484,6 @@ def prefill_chunk(params: dict, cfg, cache: dict, tokens: torch.Tensor,
     x, _ = transformer.prefill_chunk_paged(params["layers"], x, positions,
                                            table_row.to(torch.int32), cfg,
                                            cache, use_kernels)
-    last_logits = _final_logits(params, cfg, x[:, -1:])[0, 0]
+    last_logits = _final_logits(params, cfg, x[:, -1:], use_kernels)[0, 0]
     cache["pos"][slot] = positions[-1] + 1
     return last_logits

@@ -35,7 +35,12 @@ CUDA kernels (``use_kernels=True``: ``repro_torch.kernels``, whose wrappers
 take their plain versions only for CPU tensors) or the plain path of the
 reference's ``use_pallas=False`` branch (gather the logical view, then
 ``layers.decode_attention`` / ``chunked_attention``), which the engine runs
-on the CPU.
+on the CPU.  With the kernels, the pointwise chains around a paged layer's
+projections run fused too: ``ln1`` through the RMSNorm kernel, RoPE and
+the K/V page write as one ``kernels.rope_kv`` launch, and the attention
+residual add with ``ln2`` as one ``kernels.rms_norm.add_rms_norm``
+launch (``build_paged_kernels`` compiles every library these paths
+launch, all at once).
 
 A prefill replaces a recurrent layer's state leaves with the ones it
 computed (in the compute dtype, as the reference returns them); every
@@ -67,9 +72,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..kernels import _build
 from ..kernels import chunked_prefill_attention as cpa_kernel
 from ..kernels import paged_decode_attention as pfd_kernel
 from ..kernels import ragged_chunked_prefill as rcp_kernel
+from ..kernels import rms_norm as rms_kernel
+from ..kernels import rope_kv
 from ..kvcache import paged as paged_lib
 from ..sharding import context as shctx
 from ..sharding import local as shlocal
@@ -338,18 +346,30 @@ def paged_supported(cfg) -> tuple[bool, str]:
 
 
 def init_paged_cache(cfg, num_slots: int, num_blocks: int, block_size: int,
-                     dtype=torch.bfloat16, device=None) -> dict:
-    """``device=None`` means the card (raises when none is present)."""
+                     dtype=torch.bfloat16, device=None,
+                     rope_len: Optional[int] = None) -> dict:
+    """``device=None`` means the card (raises when none is present).  Off
+    the CPU the cache also holds ``rope``, the cos/sin table
+    (``layers.rope_table``) the fused RoPE + K/V write reads, one row per
+    position a sequence can reach: ``rope_len`` rows, or without it one
+    per position of the whole pool.  It is built here, before any graph
+    is captured, and the graphs bind it with the pages."""
     ok, why = paged_supported(cfg)
     if not ok:
         raise NotImplementedError(f"paged KV cache: {why}")
     device = resolve_device(device)
     shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
-    return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
-                       for _ in range(cfg.num_layers)],
-            "pos": torch.zeros((num_slots,), dtype=torch.int32,
-                               device=device)}
+    cache = {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
+                         "v": torch.zeros(shape, dtype=dtype, device=device)}
+                        for _ in range(cfg.num_layers)],
+             "pos": torch.zeros((num_slots,), dtype=torch.int32,
+                                device=device)}
+    if device.type != "cpu":
+        cache["rope"] = layers.rope_table(
+            cfg.head_dim, cfg.rope_theta,
+            rope_len if rope_len is not None else num_blocks * block_size,
+            device)
+    return cache
 
 
 def write_paged(cache: dict, one: dict, slot, table_row: torch.Tensor,
@@ -427,20 +447,55 @@ def _attn_decode(p, x, cache_k, cache_v, pos, slot_pos, cfg, window):
     return x + layers.attention_out(p["attn"], attn)
 
 
-def _attn_decode_paged(p, x, pages_k, pages_v, pos, tables, cfg,
-                       use_kernels: bool):
-    """One-token self attention against the paged pool.  The new token is
-    scattered first (page ``tables[s, pos[s]//bs]``, in place), then every
-    row attends over positions ``< pos + 1``."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = layers.attention_qkv(p["attn"], h, pos[..., None],
-                                   cfg.rope_theta)
-    paged_lib.scatter_token(pages_k, k[:, 0], tables, pos)
-    paged_lib.scatter_token(pages_v, v[:, 0], tables, pos)
+#: the kernel modules the paged paths launch with ``use_kernels``
+PAGED_KERNELS = (pfd_kernel, rcp_kernel, cpa_kernel, rms_kernel, rope_kv)
+
+
+def build_paged_kernels() -> dict:
+    """Compile every library of ``PAGED_KERNELS`` not built yet, all at
+    once (``_build.build``); seconds per library."""
+    return _build.build([m.NAME for m in PAGED_KERNELS])
+
+
+def paged_rms_norm(x, weight, eps: float, use_kernels: bool):
+    """RMSNorm on a paged path: the kernel's wrapper with the kernels,
+    else the plain version."""
     if use_kernels:
+        return rms_kernel.rms_norm(x, weight, eps)
+    return rms_norm(x, weight, eps)
+
+
+def _paged_residual(p, x, out, cfg, use_kernels: bool):
+    """The attention branch's output added to the residual stream, and
+    ``ln2`` of the sum: one launch with the kernels.  Returns (sum, its
+    norm), the MLP's residual and input."""
+    if use_kernels:
+        return rms_kernel.add_rms_norm(x, out, p["ln2"], cfg.norm_eps)
+    x = x + out
+    return x, rms_norm(x, p["ln2"], cfg.norm_eps)
+
+
+def _attn_decode_paged(p, x, lc, ctx, cfg):
+    """One-token self attention against the paged pool (``ctx``: ``pos``
+    (B,), ``lens`` = pos + 1, ``tables``).  The new token is scattered
+    first (page ``tables[s, pos[s]//bs]``, in place), then every row
+    attends over positions ``< pos + 1``.  Returns (x + attention, ``ln2``
+    of it)."""
+    pages_k, pages_v = lc["k"], lc["v"]
+    pos, tables, use_kernels = ctx["pos"], ctx["tables"], ctx["use_kernels"]
+    h = paged_rms_norm(x, p["ln1"], cfg.norm_eps, use_kernels)
+    if use_kernels:
+        q, k, v = layers.attention_proj(p["attn"], h)
+        q = rope_kv.rope_kv_decode(q, k, v, pos, tables, pages_k, pages_v,
+                                   theta=cfg.rope_theta,
+                                   table=ctx.get("rope"))
         attn = pfd_kernel.paged_flash_decode_attention(
-            q[:, 0].contiguous(), pages_k, pages_v, tables, pos + 1)[:, None]
+            q, pages_k, pages_v, tables, ctx["lens"])[:, None]
     else:
+        q, k, v = layers.attention_qkv(p["attn"], h, pos[..., None],
+                                       cfg.rope_theta)
+        paged_lib.scatter_token(pages_k, k[:, 0], tables, pos)
+        paged_lib.scatter_token(pages_v, v[:, 0], tables, pos)
         k_seq = paged_lib.gather_tokens(pages_k, tables)  # (B, nb*bs, KV, D)
         v_seq = paged_lib.gather_tokens(pages_v, tables)
         L = k_seq.shape[1]
@@ -448,31 +503,41 @@ def _attn_decode_paged(p, x, pages_k, pages_v, pos, tables, cfg,
                               device=x.device).expand(x.shape[0], L)
         attn = layers.decode_attention(q, k_seq, v_seq, q_position=pos,
                                        kv_positions=kv_pos,
-                                       valid_len=pos + 1)
-    return x + layers.attention_out(p["attn"], attn)
+                                       valid_len=ctx["lens"])
+    return _paged_residual(p, x, layers.attention_out(p["attn"], attn), cfg,
+                           use_kernels)
 
 
-def _attn_chunk_paged(p, x, pages_k, pages_v, positions, table_row, cfg,
-                      use_kernels: bool):
+def _attn_chunk_paged(p, x, lc, ctx, cfg):
     """Chunked-prefill self attention for ONE sequence (batch dim 1).
 
-    x (1, T, D) the in-flight chunk; positions (T,) its absolute positions
-    ``ctx_len .. ctx_len + T - 1``; table_row (nb,) i32.  The chunk's K/V
-    are scattered into the page pools first (in place), then the queries
-    attend over the sequence's pages: full over the prefix, causal within
-    the chunk, through the chunked-prefill kernel or the plain path of the
-    reference (gather the logical view, then ``layers.chunked_attention``,
-    the recipe of the fused path, so the two agree bit for bit)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = layers.attention_qkv(p["attn"], h, positions[None, :],
-                                   cfg.rope_theta)
-    paged_lib.scatter_chunk(pages_k, k[0], table_row, positions[0])
-    paged_lib.scatter_chunk(pages_v, v[0], table_row, positions[0])
+    x (1, T, D) the in-flight chunk; ``ctx["positions"]`` (T,) its
+    absolute positions ``ctx_len .. ctx_len + T - 1``;
+    ``ctx["table_row"]`` (nb,) i32.  The chunk's K/V are scattered into
+    the page pools first (in place), then the queries attend over the
+    sequence's pages: full over the prefix, causal within the chunk,
+    through the chunked-prefill kernel or the plain path of the reference
+    (gather the logical view, then ``layers.chunked_attention``, the
+    recipe of the fused path, so the two agree bit for bit).  Returns (x +
+    attention, ``ln2`` of it)."""
+    pages_k, pages_v = lc["k"], lc["v"]
+    positions, table_row = ctx["positions"], ctx["table_row"]
+    use_kernels = ctx["use_kernels"]
+    h = paged_rms_norm(x, p["ln1"], cfg.norm_eps, use_kernels)
     if use_kernels:
+        q, k, v = layers.attention_proj(p["attn"], h)
+        q, k, _ = rope_kv.rope_kv_packed(q[0], k[0], None, positions,
+                                         theta=cfg.rope_theta,
+                                         table=ctx.get("rope"))
+        paged_lib.scatter_chunk(pages_k, k, table_row, positions[0])
+        paged_lib.scatter_chunk(pages_v, v[0], table_row, positions[0])
         attn = cpa_kernel.chunked_prefill_attention(
-            q.contiguous(), pages_k, pages_v, table_row[None, :],
-            positions[:1])
+            q[None], pages_k, pages_v, table_row[None, :], positions[:1])
     else:
+        q, k, v = layers.attention_qkv(p["attn"], h, positions[None, :],
+                                       cfg.rope_theta)
+        paged_lib.scatter_chunk(pages_k, k[0], table_row, positions[0])
+        paged_lib.scatter_chunk(pages_v, v[0], table_row, positions[0])
         k_seq = paged_lib.gather_tokens(pages_k, table_row[None, :])
         v_seq = paged_lib.gather_tokens(pages_v, table_row[None, :])
         L = k_seq.shape[1]
@@ -480,44 +545,47 @@ def _attn_chunk_paged(p, x, pages_k, pages_v, positions, table_row, cfg,
             q, k_seq, v_seq, q_positions=positions,
             kv_positions=torch.arange(L, dtype=torch.int32, device=x.device),
             causal=True)
-    return x + layers.attention_out(p["attn"], attn)
+    return _paged_residual(p, x, layers.attention_out(p["attn"], attn), cfg,
+                           use_kernels)
 
 
-def _attn_chunks_paged(p, x, pages_k, pages_v, ctx, cfg):
+def _attn_chunks_paged(p, x, lc, ctx, cfg):
     """Fused ragged chunked-prefill attention over every scheduled chunk
     of one engine iteration (batch dim 1, packed tokens).
 
     Every chunk's K/V lands in its pages (in place) and each chunk
-    attends full over its prefix and causally within itself.  The kernel
-    path builds the per-chunk padded views with the clipped packed-row
-    index and pre-casts the chunk K/V to the page dtype, as the reference
-    does before its Pallas call; the plain path scatters the packed
-    stream (padding rows dropped) and runs ``layers.chunked_attention``
-    per chunk over the gathered view."""
+    attends full over its prefix and causally within itself.  Both paths
+    build the per-chunk padded views from the clipped packed-row index
+    ``qidx`` and repack the output by ``repack`` (both in ``ctx``, shared
+    by the layers).  The kernel path rotates q and k and gathers the views
+    (K/V in the page dtype, as the reference casts them before its Pallas
+    call) in one ``rope_kv`` launch, and the ragged kernel scatters the
+    chunk K/V; the plain path scatters the packed stream (padding rows
+    dropped) and runs ``layers.chunked_attention`` per chunk over the
+    gathered view.  Returns (x + attention, ``ln2`` of it)."""
+    pages_k, pages_v = lc["k"], lc["v"]
     positions = ctx["positions"]             # (TT,) absolute positions
-    token_chunk = ctx["token_chunk"]         # (TT,) row -> chunk id
-    local = ctx["local"]                     # (TT,) row within its chunk
-    valid = ctx["valid"]                     # (TT,) False = padding row
     meta = ctx["meta"]                       # (C, 4) i32
     tables = ctx["table_rows"]               # (C, nb) i32
+    qidx = ctx["qidx"]                       # (C * Tp,) packed row of each
     Tp = ctx["chunk_pad"]                    # padded chunk length
+    use_kernels = ctx["use_kernels"]
     C = meta.shape[0]
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = layers.attention_qkv(p["attn"], h, positions[None, :],
-                                   cfg.rope_theta)
-    TT = x.shape[1]
-    qidx = torch.clamp(meta[:, 3].long()[:, None]
-                       + torch.arange(Tp, device=x.device)[None, :],
-                       0, TT - 1).reshape(-1)
-    if ctx["use_kernels"]:
-        qv = q[0][qidx].reshape((C, Tp) + tuple(q.shape[2:]))
-        knv = k[0].to(pages_k.dtype)[qidx].reshape(
-            (C, Tp) + tuple(k.shape[2:]))
-        vnv = v[0].to(pages_v.dtype)[qidx].reshape(
-            (C, Tp) + tuple(v.shape[2:]))
-        av = rcp_kernel.ragged_chunked_prefill(qv, knv, vnv, pages_k,
-                                               pages_v, tables, meta)
+    h = paged_rms_norm(x, p["ln1"], cfg.norm_eps, use_kernels)
+    if use_kernels:
+        q, k, v = layers.attention_proj(p["attn"], h)
+        qv, knv, vnv = rope_kv.rope_kv_packed(
+            q[0], k[0], v[0], positions, qidx, theta=cfg.rope_theta,
+            table=ctx.get("rope"))
+        av = rcp_kernel.ragged_chunked_prefill(
+            qv.view((C, Tp) + tuple(q.shape[2:])),
+            knv.to(pages_k.dtype).view((C, Tp) + tuple(k.shape[2:])),
+            vnv.to(pages_v.dtype).view((C, Tp) + tuple(v.shape[2:])),
+            pages_k, pages_v, tables, meta)
     else:
+        q, k, v = layers.attention_qkv(p["attn"], h, positions[None, :],
+                                       cfg.rope_theta)
+        token_chunk, valid = ctx["token_chunk"], ctx["valid"]
         paged_lib.scatter_packed(pages_k, k[0], tables, token_chunk,
                                  positions, valid)
         paged_lib.scatter_packed(pages_v, v[0], tables, token_chunk,
@@ -535,8 +603,9 @@ def _attn_chunks_paged(p, x, pages_k, pages_v, ctx, cfg):
                 causal=True)[0]
             for c in range(C)])              # (C, Tp, H, D)
     # repack: packed row j is row local[j] of chunk token_chunk[j]
-    attn = av[token_chunk.long(), torch.clamp(local, 0, Tp - 1).long()][None]
-    return x + layers.attention_out(p["attn"], attn)
+    attn = av.reshape((C * Tp,) + tuple(av.shape[2:]))[ctx["repack"]][None]
+    return _paged_residual(p, x, layers.attention_out(p["attn"], attn), cfg,
+                           use_kernels)
 
 
 def _project_enc_kv(p, enc_out):
@@ -601,15 +670,17 @@ def _gather_seq(h):
     return shctx.constrain(h, ("batch", None, None))
 
 
-def _mlp_part(p, x, cfg):
-    return x + layers.apply_mlp(
-        p["mlp"], _gather_seq(rms_norm(x, p["ln2"], cfg.norm_eps)),
-        cfg.mlp_act)
+def _mlp_part(p, x, cfg, h=None):
+    """``x + mlp(ln2(x))``; ``h``, where given, is ``ln2(x)`` already."""
+    if h is None:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + layers.apply_mlp(p["mlp"], _gather_seq(h), cfg.mlp_act)
 
 
-def _moe_part(p, x, cfg):
-    y, aux = moe_lib.apply_moe(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                               cfg)
+def _moe_part(p, x, cfg, h=None):
+    if h is None:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, aux = moe_lib.apply_moe(p["moe"], h, cfg)
     return x + y, aux
 
 
@@ -632,6 +703,7 @@ def _apply_layer(kind, p, x, ctx, cfg, lc, mode):
     if kind in ("ssm", "rec"):
         return _recurrent_layer(kind, p, x, cfg, lc, mode), None
     window = _layer_window(kind, cfg)
+    h = None                # ln2(x), where a paged layer computed it
     if mode in ("prefill", "train"):
         x, k, v = _attn_seq(p, x, ctx["positions"], cfg, window)
         if lc is not None:
@@ -642,13 +714,11 @@ def _apply_layer(kind, p, x, ctx, cfg, lc, mode):
     elif kind in ("attn_local", "cross"):
         _refuse_paged(kind, mode)
     elif mode == "decode_paged":
-        x = _attn_decode_paged(p, x, lc["k"], lc["v"], ctx["pos"],
-                               ctx["tables"], cfg, ctx["use_kernels"])
+        x, h = _attn_decode_paged(p, x, lc, ctx, cfg)
     elif mode == "chunk":
-        x = _attn_chunk_paged(p, x, lc["k"], lc["v"], ctx["positions"],
-                              ctx["table_row"], cfg, ctx["use_kernels"])
+        x, h = _attn_chunk_paged(p, x, lc, ctx, cfg)
     elif mode == "chunks":
-        x = _attn_chunks_paged(p, x, lc["k"], lc["v"], ctx, cfg)
+        x, h = _attn_chunks_paged(p, x, lc, ctx, cfg)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     if kind == "cross":
@@ -661,8 +731,8 @@ def _apply_layer(kind, p, x, ctx, cfg, lc, mode):
                 shlocal.copy_into(lc["enc_v"], enc_v)
         x = _cross_attn(p, x, enc_k, enc_v, cfg)
     if kind == "moe":
-        return _moe_part(p, x, cfg)
-    return _mlp_part(p, x, cfg), None
+        return _moe_part(p, x, cfg, h)
+    return _mlp_part(p, x, cfg, h), None
 
 
 def apply_stack(stack: list, x: torch.Tensor, ctx: dict, cfg,
@@ -710,5 +780,5 @@ def prefill_chunk_paged(stack: list, x: torch.Tensor,
     states, aux) as ``apply_stack``; the caller (``model.prefill_chunk``)
     owns the final norm, logits and ``pos``."""
     ctx = {"positions": positions, "table_row": table_row,
-           "use_kernels": use_kernels}
+           "use_kernels": use_kernels, "rope": cache.get("rope")}
     return apply_stack(stack, x, ctx, cfg, cache, "chunk")

@@ -825,9 +825,11 @@ class ServingEngine:
         reachable uncached-suffix length of a stall serve with the prefix
         cache (matches are block-quantized, plus the one-token recompute
         of a full match), ``{min(chunk, S), S}`` of a chunked one.  Other
-        ragged keys are captured on their first call.  Records the
-        warm-up's seconds (``graph_warm_s``).  A capture that fails
-        raises."""
+        ragged keys are captured on their first call.  With the kernels,
+        the paged path's libraries are compiled first, all at once
+        (``transformer.build_paged_kernels``), not one after another at
+        their first launches.  Records the warm-up's seconds
+        (``graph_warm_s``).  A capture that fails raises."""
         self.graph_warm_s = 0.0
         if not self.aot_warmup or not self._window.captures():
             return
@@ -839,6 +841,8 @@ class ServingEngine:
 
         t0 = time.perf_counter()
         if self.kv == "paged":
+            if self.use_kernels:
+                transformer.build_paged_kernels()
             nb = kvc.max_blocks_per_seq
             self._window.warm(self._window_key, (p, cfg, cache, z(C, 1),
                                                  z(C, nb)),

@@ -23,6 +23,7 @@ from repro_torch.kernels import paged_decode_attention as tpfd  # noqa: E402
 from repro_torch.kernels import ragged_chunked_prefill as trcp  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rms_norm as trn  # noqa: E402
+from repro_torch.kernels import rope_kv as trope  # noqa: E402
 from repro_torch.kernels.compare import within  # noqa: E402
 
 @pytest.fixture
@@ -211,8 +212,10 @@ def test_cuda_tensors_never_take_the_plain_version(cuda):
 
 @pytest.mark.cuda
 def test_cuda_model_decode_goes_through_the_kernel(cuda):
-    """One paged decode step of the smoke model launches the kernel once
-    per layer with ``use_kernels=True`` and never with ``False``; the two
+    """One paged decode step of the smoke model launches the attention
+    kernel and the fused RoPE + K/V write once per layer, and the RMSNorm
+    kernel twice per layer and once more, with ``use_kernels=True``, and
+    none of them with ``False``; the two
     paths' logits agree to bf16 rounding carried through two layers (bf16
     logits: a few ulps of the largest, 2^-8 relative each)."""
     from repro_torch import configs
@@ -224,15 +227,19 @@ def test_cuda_model_decode_goes_through_the_kernel(cuda):
     tables = torch.arange(8, dtype=torch.int32, device=cuda).view(2, 4)
     token = torch.tensor([[5], [7]], dtype=torch.int32, device=cuda)
     logits = {}
+    L = cfg.num_layers
     for use_kernels in (True, False):
         cache = transformer.init_paged_cache(cfg, 2, 9, 4, device=cuda)
         cache["pos"].fill_(3)
-        before = tpfd.launches
+        before = [m.launches for m in (tpfd, trope, trn)]
         _, logits[use_kernels] = model_lib.decode_step_paged(
             params, cfg, cache, token, tables, use_kernels=use_kernels)
         torch.cuda.synchronize()
-        launched = tpfd.launches - before
-        assert launched == (cfg.num_layers if use_kernels else 0)
+        launched = [m.launches - b
+                    for m, b in zip((tpfd, trope, trn), before)]
+        # per layer: the attention, RoPE + K/V write, ln1 and add + ln2;
+        # and the final norm
+        assert launched == ([L, L, 2 * L + 1] if use_kernels else [0] * 3)
     scale = float(logits[False].abs().max())
     assert float((logits[True] - logits[False]).abs().max()) <= 0.05 * scale
 
@@ -467,6 +474,113 @@ def test_cuda_rms_norm_kernel_matches_plain(cuda, xdt, wdt, shape, offset):
     assert within(out, ref.rms_norm_ref(x, w, 1e-6))
 
 
+# ---------------------------------------------------------------------------
+# the paged model path's fused pointwise chains
+# ---------------------------------------------------------------------------
+
+#: (d_model, heads, kv heads, head dim, rope theta): starcoder2-3b's and
+#: kimi-k2's attention layers
+FUSED_SHAPES = [(3072, 24, 2, 128, 1e5), (7168, 64, 8, 112, 5e4)]
+
+
+def _rope_case(cuda, H, KV, hd, theta, B, bs=16, nb=8, seed=9):
+    from repro_torch.models import layers
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    N = B * nb + 1
+    pages = (rnd(N, bs, KV, hd), rnd(N, bs, KV, hd))
+    tables = torch.randperm(N - 1, generator=g, device=cuda)[:B * nb].view(
+        B, nb).to(torch.int32)
+    table = layers.rope_table(hd, theta, nb * bs, cuda)
+    return rnd, pages, tables, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H,KV,hd,theta", FUSED_SHAPES)
+def test_cuda_rope_kv_decode_matches_the_plain_chain(cuda, D, H, KV, hd,
+                                                     theta):
+    """One decode step's RoPE + K/V write against ``apply_rope`` twice,
+    ``scatter_token`` twice and ``q[:, 0].contiguous()`` on the card: the
+    rotated q and every page bit-equal.  The rows sit at a block's last
+    row (pos % bs == bs - 1), at a fresh block's first row, mid-block and
+    at the table's last position; a dead row past the table writes only
+    its table's (trash) page."""
+    bs, nb = 16, 8
+    pos = torch.tensor([15, 16, 37, nb * bs - 1, 500], dtype=torch.int32,
+                       device=cuda)
+    B = pos.shape[0]
+    rnd, pages, tables, table = _rope_case(cuda, H, KV, hd, theta, B)
+    trash = pages[0].shape[0] - 1
+    tables[B - 1] = trash
+    q, k, v = rnd(B, 1, H, hd), rnd(B, 1, KV, hd), rnd(B, 1, KV, hd)
+    want_pages = [p.clone() for p in pages]
+    want = ref.rope_kv_decode_ref(q, k, v, pos, tables, *want_pages, theta)
+    before = trope.launches
+    with torch.no_grad():
+        got = trope.rope_kv_decode(q, k, v, pos, tables, *pages,
+                                   theta=theta, table=table)
+    torch.cuda.synchronize()
+    assert trope.launches == before + 1
+    assert got.shape == (B, H, hd) and got.is_contiguous()
+    assert torch.equal(got[:B - 1], want[:B - 1])
+    for a, b in zip(pages, want_pages):
+        assert torch.equal(a[:trash], b[:trash])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H,KV,hd,theta", FUSED_SHAPES)
+def test_cuda_rope_kv_packed_matches_the_plain_chain(cuda, D, H, KV, hd,
+                                                     theta):
+    """The packed prefill's RoPE and the gather of the padded chunk views
+    against ``apply_rope`` and indexing on the card, bit for bit: rows
+    repeated and out of order (the clipped view index), positions across
+    the table; and the single-chunk form (every row, no v)."""
+    T = 40
+    rnd, _, _, table = _rope_case(cuda, H, KV, hd, theta, 1)
+    q, k, v = rnd(T, H, hd), rnd(T, KV, hd), rnd(T, KV, hd)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    positions = torch.randint(0, table.shape[0], (T,), generator=g,
+                              device=cuda, dtype=torch.int32)
+    rows = torch.clamp(torch.arange(-3, 2 * T, 2, device=cuda), 0, T - 1)
+    for r, vv in ((rows, v), (None, None)):
+        want = ref.rope_kv_packed_ref(q, k, vv, positions, r, theta)
+        before = trope.launches
+        with torch.no_grad():
+            got = trope.rope_kv_packed(q, k, vv, positions, r, theta=theta,
+                                       table=table)
+        torch.cuda.synchronize()
+        assert trope.launches == before + 1
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 128, 640])
+@pytest.mark.parametrize("D", [3072, 7168])
+def test_cuda_add_rms_norm_matches_plain(cuda, D, n, offset):
+    """The residual add + RMSNorm: the sum bit-equal to torch's bf16 add,
+    the norm within ``compare.within`` of ``rms_norm_ref`` of that sum;
+    ``offset`` 1 starts x one element past a 16-byte boundary (the scalar
+    body)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    buf = (torch.randn((n * D + offset,), generator=g, device=cuda)
+           * 3).to(torch.bfloat16)
+    x = buf[offset:].view(n, D)
+    y = torch.randn((n, D), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((D,), generator=g, device=cuda) * 0.1).to(
+        torch.bfloat16)
+    before = trn.launches
+    with torch.no_grad():
+        s, out = trn.add_rms_norm(x, y, w, 1e-6)
+    torch.cuda.synchronize()
+    assert trn.launches == before + 1
+    assert torch.equal(s, x + y)
+    assert within(out, ref.rms_norm_ref(x + y, w, 1e-6))
+
+
 @pytest.mark.cuda
 def test_cuda_ops_never_take_the_plain_version(cuda):
     """``use_kernels=None`` and ``True`` launch on CUDA tensors, and a
@@ -617,13 +731,12 @@ def _graph_case(name, cfg, cuda):
             {"chunk_pad": 4, "use_kernels": True})
 
 
-#: (executable, head dim): the smoke model's 32, and 128 for the kernels,
-#: whose shared memory at 128 is above 48 KB (a function attribute set
-#: at every launch, inside the capture too)
-#: the device kernels each engine kernel module's launch runs, once each
+#: the device kernels each kernel module's launch on the paged path runs,
+#: once each
 KERNEL_EVENTS = {tpfd: ("paged_decode_split_kernel",
                         "paged_decode_combine_kernel"),
-                 trcp: ("ragged_prefill_kernel",)}
+                 trcp: ("ragged_prefill_kernel",),
+                 trope: ("rope_kv_",), trn: ("rms_norm_kernel",)}
 
 
 def _kernel_events(fn):
@@ -652,10 +765,13 @@ def _events_are_launches(events, launches):
             assert events[t] == launches[m], (t, events[t], launches[m])
 
 
+#: (executable, head dim): the smoke model's 32, and 112 (kimi-k2's) and
+#: 128 for the kernels, whose shared memory at 128 is above 48 KB (a
+#: function attribute set at every launch, inside the capture too)
 GRAPH_CASES = [(n, 32) for n in ("window paged", "window ring",
                                   "admit paged", "admit ring", "cow",
-                                  "ragged")] + [("window paged", 128),
-                                                ("ragged", 128)]
+                                  "ragged")] + [
+    (n, hd) for hd in (112, 128) for n in ("window paged", "ragged")]
 
 
 @pytest.mark.cuda
@@ -695,8 +811,12 @@ def test_cuda_graphed_executable_equals_eager(cuda, name, head_dim):
         for a, b in zip(_bits(cache), _bits(eager)):
             assert torch.equal(a, b)
     if name in ("window paged", "ragged"):
-        assert sum(launches.values()) == (cfg.num_layers
-                                          * kw.get("num_steps", 1))
+        # a step: per layer the attention, RoPE + K/V write, ln1 and
+        # add + ln2, then the final norm
+        L, steps = cfg.num_layers, kw.get("num_steps", 1)
+        attn = tpfd if name == "window paged" else trcp
+        assert launches == {tpfd: 0, trcp: 0, trope: L * steps,
+                            trn: (2 * L + 1) * steps, attn: L * steps}
 
 
 @pytest.mark.cuda

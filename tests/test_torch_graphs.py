@@ -9,8 +9,10 @@
     operation a capture forbids: a read of a device value on the host
     (``aten._local_scalar_dense`` and the like), a data-dependent shape
     (``nonzero``, boolean-mask indexing) or a copy between host and
-    device.  The attention kernels are stubbed: on the card the CUDA
-    kernels run in their place, and their plain versions never do.  The
+    device.  The attention kernels and the paged path's fused pointwise
+    kernels are stubbed (the RoPE stubs check that the cache's cos/sin
+    table is bound): on the card the CUDA kernels run in their place, and
+    their plain versions never do.  The
     checker itself is held to the two host reads the port had before its
     graphs (a ``torch.tensor`` of a Python int on the device, an ``int()``
     of a device index);
@@ -51,6 +53,8 @@ from repro.serving import generate as jgenerate  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as tpfd  # noqa: E402
 from repro_torch.kernels import ragged_chunked_prefill as trcp  # noqa: E402
+from repro_torch.kernels import rms_norm as trn  # noqa: E402
+from repro_torch.kernels import rope_kv as trope  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
@@ -166,6 +170,25 @@ def stub_kernels(monkeypatch):
                         lambda q, *a: torch.empty_like(q))
     monkeypatch.setattr(trcp, "ragged_chunked_prefill",
                         lambda q, *a: torch.empty_like(q))
+    monkeypatch.setattr(trn, "rms_norm",
+                        lambda x, *a: torch.empty_like(x))
+    monkeypatch.setattr(trn, "add_rms_norm",
+                        lambda x, *a: (torch.empty_like(x),
+                                       torch.empty_like(x)))
+
+    def rope_decode(q, k, v, pos, tables, k_pages, v_pages, *, theta,
+                    table):
+        assert table is not None and table.device == q.device
+        return torch.empty_like(q[:, 0])
+
+    def rope_packed(q, k, v, positions, rows=None, *, theta, table):
+        assert table is not None and table.device == q.device
+        R = q.shape[0] if rows is None else rows.shape[0]
+        return (q.new_empty((R,) + q.shape[1:]),
+                k.new_empty((R,) + k.shape[1:]),
+                None if v is None else v.new_empty((R,) + v.shape[1:]))
+    monkeypatch.setattr(trope, "rope_kv_decode", rope_decode)
+    monkeypatch.setattr(trope, "rope_kv_packed", rope_packed)
 
 
 C, S, BS, NB, W = 3, 8, 4, 4, 16
